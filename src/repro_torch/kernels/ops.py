@@ -1,0 +1,142 @@
+"""Operand preparation around the kernels and the scoring-backend dispatch.
+
+Counterpart of ``repro.kernels.ops``.  Every query hot path routes
+candidate generation through one selector:
+
+* ``fused``     — kernel A (``sinnamon_score_topk``) + the tile merge; never
+  materialises the [B, C] score matrix.  The default.
+* ``grouped``   — ``engine.score_batch(grouped=True)`` + a dense top-k.
+* ``reference`` — the coordinate-at-a-time ``engine.score_batch`` + a dense
+  top-k; the correctness oracle.
+
+Each function dispatches on the device of its tensors: the CUDA kernel for
+CUDA tensors, its plain twin for CPU tensors (``use_kernel`` overrides:
+False runs the twin on the card too, which is how the kernels are checked).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import csr_score as _csr
+from repro_torch.kernels import sinnamon_score as _sinn
+
+Tensor = torch.Tensor
+
+SCORE_BACKENDS = ("reference", "grouped", "fused")
+DEFAULT_SCORE_BACKEND = "fused"
+
+
+def resolve_backend(backend: Optional[str] = None) -> str:
+    """Validate a backend choice; None -> ``fused``."""
+    backend = DEFAULT_SCORE_BACKEND if backend is None else backend
+    if backend not in SCORE_BACKENDS:
+        raise ValueError(f"unknown score backend {backend!r}; "
+                         f"expected one of {SCORE_BACKENDS}")
+    return backend
+
+
+def pad_axis(x: Tensor, axis: int, multiple: int, fill=0) -> Tensor:
+    """Pad ``axis`` of ``x`` up to a multiple of ``multiple`` with ``fill``."""
+    size = x.shape[axis]
+    target = -(-size // multiple) * multiple
+    if target == size:
+        return x
+    shape = list(x.shape)
+    shape[axis] = target - size
+    pad = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=axis)
+
+
+def prepare_query_operands(state, spec, q_idx: Tensor, q_val: Tensor,
+                           budget: Optional[int] = None):
+    """Engine state + padded sparse queries [B, Lq] -> (qv f32[B, L],
+    rows int32[B, L, h], brows int32[B, L]).
+
+    Sorts coordinates by |q[j]| descending (stable: Algorithm 6 line 2),
+    truncates to the anytime budget and looks up the h sketch rows and the
+    bitmap row of each kept coordinate.  Padded coordinates get qv = 0 and
+    brows = -1 (the reference gathers their membership words as zeros
+    instead; the kernel reads words itself).
+    """
+    from repro_torch.core import engine as _eng
+    Lq = q_idx.shape[-1]
+    L = Lq if budget is None else min(budget, Lq)
+    key = torch.where(q_idx >= 0, q_val.to(torch.float32).abs(), -1.0)
+    order = torch.argsort(-key, dim=-1, stable=True)[..., :L]
+    idx_s = q_idx.gather(-1, order)
+    val_s = q_val.gather(-1, order).to(torch.float32)
+    valid = idx_s >= 0
+    safe = torch.where(valid, idx_s, 0).long()
+    qv = torch.where(valid, val_s, 0.0)
+    rows = state.mappings[:, safe].permute(1, 2, 0)          # [B, L, h]
+    brows = torch.where(valid, _eng.coord_rows(spec, idx_s), -1)
+    return (qv.contiguous(), rows.to(torch.int32).contiguous(),
+            brows.to(torch.int32).contiguous())
+
+
+def prepare_fused_operands(state, spec, q_idx, q_val, budget=None):
+    """Query + state -> (qv, rows, brows, skmat, one_sided) for kernel A.
+
+    On top of :func:`prepare_query_operands`: negative coordinates' sketch
+    rows are offset by +m into the stacked [U; L] matrix, so each cell is
+    read one-sided.  The state keeps [U; L] stacked already, so ``skmat``
+    is ``state.sketch`` itself.  Without a lower sketch, ``skmat`` is U and
+    negative coordinates contribute 0 (``one_sided`` False).
+    """
+    qv, rows, brows = prepare_query_operands(state, spec, q_idx, q_val,
+                                             budget)
+    if state.l is None:
+        return qv, rows, brows, state.sketch, False
+    rows = torch.where((qv > 0)[..., None], rows, rows + state.m)
+    return qv, rows.contiguous(), brows, state.sketch, True
+
+
+def sinnamon_tile_topk(state, spec, q_idx, q_val, kprime: int, *,
+                       budget: Optional[int] = None,
+                       ok: Optional[Tensor] = None,
+                       use_kernel: Optional[bool] = None):
+    """Sketch-scan stage of the fused path: per-tile candidates, pre-merge.
+
+    Slots past the capacity (the last tile's padding) are gated to -inf, so
+    any capacity works.  Tiles are the kernel's ``TILE_C`` slots on every
+    device; ``kp = min(kprime, TILE_C)``.  Returns
+    ``(vals f32[B, T, kp], slots int32[B, T, kp])``; feed them to
+    :func:`repro_torch.kernels.sinnamon_score.merge_tile_topk`.
+    """
+    C = state.sketch.shape[1]
+    if kprime > C:
+        raise ValueError(f"kprime={kprime} > capacity {C}")
+    qv, rows, brows, skmat, one_sided = prepare_fused_operands(
+        state, spec, q_idx, q_val, budget)
+    if ok is None:
+        ok = torch.ones((C,), dtype=torch.bool, device=qv.device)
+    return _sinn.sinnamon_score_topk(
+        qv, rows, brows, state.bits, ok.contiguous(), skmat,
+        kp=min(kprime, _sinn.TILE_C), one_sided=one_sided,
+        use_kernel=use_kernel)
+
+
+def sinnamon_topk_batch(state, spec, q_idx, q_val, kprime: int, *,
+                        budget: Optional[int] = None,
+                        ok: Optional[Tensor] = None,
+                        use_kernel: Optional[bool] = None):
+    """Fused candidate generation: (vals f32[B, kprime],
+    slots int32[B, kprime]) in (upper bound desc, slot asc) order."""
+    vals, slots = sinnamon_tile_topk(state, spec, q_idx, q_val, kprime,
+                                     budget=budget, ok=ok,
+                                     use_kernel=use_kernel)
+    return _sinn.merge_tile_topk(vals, slots, kprime)
+
+
+def exact_scores_all(store, q_dense: Tensor, *,
+                     use_kernel: Optional[bool] = None) -> Tensor:
+    """Exact LinScan: scores of every slot, f32[C] for a query f32[n] or
+    f32[B, C] for f32[B, n]."""
+    one = q_dense.dim() == 1
+    out = _csr.csr_score(q_dense.reshape(-1, q_dense.shape[-1]).contiguous(),
+                         store.indices, store.values, None,
+                         use_kernel=use_kernel)
+    return out[0] if one else out

@@ -1,0 +1,150 @@
+"""Kernel-against-twin checks on the card (marker ``gpu``).
+
+Each CUDA kernel of ``repro_torch`` is run at small shapes on CUDA tensors
+and held against its plain-torch twin on the same tensors.  The tests skip
+when no CUDA device is present; the decision is made inside a fixture, so
+every worker collects the same tests.  Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.data import synth  # noqa: E402
+from repro_torch.kernels import csr_score, sinnamon_score  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+CELLS = {"f32": torch.float32, "bf16": torch.bfloat16,
+         "f8": torch.float8_e4m3fn}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _cells(rng, shape, dtype, shift=0.0):
+    if dtype == torch.float8_e4m3fn:
+        codes = rng.integers(0, 0x7F, shape).astype(np.uint8)   # no NaN
+        codes |= (rng.random(shape) < 0.3).astype(np.uint8) << 7
+        return torch.from_numpy(codes).view(torch.float8_e4m3fn)
+    x = torch.from_numpy((rng.normal(0, 1, shape) + shift).astype(np.float32))
+    return x.to(dtype)
+
+
+def _fused_operands(rng, B, L, h, m, C, nrows, dtype, one_sided):
+    qv = rng.normal(0, 1, (B, L)).astype(np.float32)
+    qv[:, -1] = 0.0
+    R = 2 * m if one_sided else m
+    rows = rng.integers(0, m, (B, L, h)).astype(np.int32)
+    if one_sided:
+        rows = np.where((qv > 0)[..., None], rows, rows + m).astype(np.int32)
+    brows = rng.integers(-1, nrows, (B, L)).astype(np.int32)
+    bits = rng.integers(-2**31, 2**31, (nrows, C // 32), dtype=np.int64)
+    ok = rng.random(C) < 0.8
+    return (torch.from_numpy(qv), torch.from_numpy(rows),
+            torch.from_numpy(brows),
+            torch.from_numpy(bits.astype(np.int32)), torch.from_numpy(ok),
+            _cells(rng, (R, C), dtype))
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+@pytest.mark.parametrize("B,L,h,m,C,kprime,one_sided", [
+    (2, 5, 2, 8, 384, 40, True),
+    (3, 7, 1, 16, 19_968, 900, True),
+    (2, 9, 3, 8, 16_384, 16_384, True),
+    (4, 6, 2, 8, 8_224, 300, False),
+])
+def test_sinnamon_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C, kprime,
+                                           one_sided):
+    rng = np.random.default_rng(B * 1000 + C)
+    ops = [t.to(cuda) for t in _fused_operands(rng, B, L, h, m, C, 40,
+                                               CELLS[cell], one_sided)]
+    kp = min(kprime, sinnamon_score.TILE_C)
+    before = sinnamon_score.sinnamon_score_topk.launches
+    kv, ks = sinnamon_score.sinnamon_score_topk(*ops, kp=kp,
+                                                one_sided=one_sided)
+    assert sinnamon_score.sinnamon_score_topk.launches == before + 1
+    tv, ts = sinnamon_score.sinnamon_score_topk_plain(*ops, kp=kp,
+                                                      one_sided=one_sided)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ks, ts, rtol=0, atol=0)
+    torch.testing.assert_close(kv, tv, rtol=0, atol=0, equal_nan=False)
+    gv, gs = sinnamon_score.merge_tile_topk(kv, ks, kprime)
+    pv, ps = sinnamon_score.merge_tile_topk(tv, ts, kprime)
+    assert torch.equal(gs, ps) and torch.equal(gv, pv)
+    assert int(gs.max()) < C
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,C,P,n", [(3, 40, 500, 17, 700),
+                                       (16, 800, 4096, 128, 30_000),
+                                       (2, 50, 300, 8, 70_000)])
+def test_csr_kernel_matches_twin(cuda, vdt, B, K, C, P, n):
+    rng = np.random.default_rng(K + P)
+    idx = torch.from_numpy(rng.integers(-1, n, (C, P)).astype(np.int32))
+    val = torch.from_numpy(rng.normal(0, 1, (C, P)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(0, 1, (B, n)).astype(np.float32))
+    slots = torch.from_numpy(rng.integers(0, C, (B, K)).astype(np.int32))
+    idx, val, q, slots = (idx.to(cuda), val.to(vdt).to(cuda), q.to(cuda),
+                          slots.to(cuda))
+    for s in (slots, None):
+        got = csr_score.csr_score(q, idx, val, s)
+        want = csr_score.csr_score_plain(q, idx, val, s)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_rejects_bad_operands(cuda):
+    q = torch.zeros((2, 10), device=cuda)
+    idx = torch.zeros((4, 3), dtype=torch.int64, device=cuda)
+    val = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError):
+        csr_score.csr_score(q, idx, val)
+
+
+@pytest.mark.parametrize("cell", ["bf16", "f8"])
+def test_index_on_card_matches_cpu(cuda, cell):
+    """Inserts, deletes and searches on the card give the CPU index's
+    state bit for bit and its ids; kernel path == plain-twin path."""
+    ds = synth.SparseDatasetSpec("t", n=500, psi_doc=24, psi_query=12)
+    idx, val = synth.make_corpus(0, ds, 300, pad=48)
+    qi, qv = synth.make_queries(1, ds, 8, pad=24)
+    spec = teng.EngineSpec(n=500, m=16, h=2, capacity=320, max_nnz=48,
+                           dtype=cell, value_dtype="float32", seed=3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        index = teng.SinnamonIndex(spec, device=dev)
+        index.insert_many(list(range(280)), idx[:280], val[:280])
+        for d in range(0, 280, 5):
+            index.delete(d)
+        index.insert_many(list(range(280, 300)), idx[280:], val[280:])
+        out[dev] = index
+    a, b = out["cpu"].state, out["cuda"].state
+    for name in ("sketch", "bits", "active", "ids", "dirty"):
+        x, y = getattr(a, name), getattr(b, name).cpu()
+        assert torch.equal(x.view(torch.uint8) if x.dtype.is_floating_point
+                           else x, y.view(torch.uint8)
+                           if y.dtype.is_floating_point else y), name
+    want, _ = out["cpu"].search_many(qi, qv, k=10, kprime=60)
+    got, _ = out["cuda"].search_many(qi, qv, k=10, kprime=60)
+    np.testing.assert_array_equal(got, want)
+    dev_index = out["cuda"]
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=cuda)  # noqa: E731
+    ids_k, sc_k, _ = teng.search_batch(dev_index.state, spec,
+                                       t(qi, torch.int32),
+                                       t(qv, torch.float32), 10, 60)
+    ids_p, sc_p, _ = teng.search_batch(dev_index.state, spec,
+                                       t(qi, torch.int32),
+                                       t(qv, torch.float32), 10, 60,
+                                       use_kernel=False)
+    assert torch.equal(ids_k, ids_p)
+    torch.testing.assert_close(sc_k, sc_p, rtol=1e-5, atol=1e-5)
