@@ -8,35 +8,51 @@ shard of the paper's MS MARCO deployment (``serve_msmarco``: n=30,000,
 m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
 
 1. device   — the card's name, count and power limit;
-2. build    — both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-              nvcc per source, started together), with ptxas's registers
-              and shared memory;
+2. build    — the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+              (one nvcc per source, started together), with ptxas's
+              registers and shared memory;
 3. kernels  — each kernel against its plain twin on the card, at the main
-              path's shapes: kernel A + merge bit-equal to the twin + merge
-              (bf16 and f8 cells); kernel B's rerank and LinScan within
-              rtol = atol = 1e-5 (the sum order differs);
-4. main     — ``open_index`` + ``insert_many`` of the shard,
-              ``delete_many`` of 1/16 of it and re-insert into the dirty
-              slots, serve batches of 16 and 256 through
+              paths' shapes: kernel A + merge bit-equal to the twin + merge
+              and kernel C bit-equal to its twin (bf16 and f8 cells, signed
+              queries, padded coordinates); kernel B's rerank and LinScan
+              within rtol = atol = 1e-5 (the sum order differs);
+4. main     — the fused path: ``open_index`` + ``insert_many`` of the
+              shard, ``delete_many`` of 1/16 of it and re-insert into the
+              dirty slots, serve batches of 16 and 256 through
               ``QueryServer.query_many`` (k=10, k'=800), one staged batch;
               kernel-path ids == plain-twin ids; recall@10 against kernel
               B's exact LinScan, at least ``RECALL_MIN``; a small index
               whose answer must equal the exact top-10;
+4b. dense   — the same index served through the ``score_fn`` hook
+              (``ops.make_engine_score_fn()``: kernel C + ``topk_desc``),
+              20 batches of 16: candidates bit-equal to the on-card
+              ``reference`` backend, ids equal to the fused path's, recall@10
+              at least ``RECALL_MIN``;
 5. times    — CUDA-event times of each kernel and its twin, the library
               yardstick for the LinScan (one torch.sparse CSR mat-vec),
               request latency p50/p99 (the wall time of each ``query_many``
               batch: every request of a batch waits for all of it) and
-              throughput in queries/s, peak device memory.
+              throughput in queries/s of both paths;
+4c. eval    — run after 5, once the served index is freed: the paper's
+              evaluation path (``repro_torch.eval``) on the same 1,114,112
+              documents and 256 queries: the recall frontier over three
+              lever points with the Eq. (13) bound check (no Theorem 5.1
+              undershoot beyond the quantization margin), and the
+              churn -> compact drift trajectory on a sample (compaction must
+              return the drift to 0).  Peak device memory stays < 40 GB.
 
-Ends with a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line
-and ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the
-script exits non-zero and prints no result; so does a machine without CUDA
-or a directory without the package.
+Launch counts are read per path: kernels A and B must launch on the fused
+path, C and B on the dense path (and A not at all there).  Ends with a JSON
+line of per-kernel numbers, the card's ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
+exits non-zero and prints no result; so does a machine without CUDA or a
+directory without the package.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -53,6 +69,9 @@ N, M, H, P, K, KPRIME = 30_000, 64, 1, 128, 10, 800
 SHARD_DOCS = 8_912_896 // 8
 PSI_DOC, PSI_QUERY, Q_PAD = 119, 43, 64     # splade_like (synth.py:44)
 RECALL_MIN = 0.95                           # recall@10 limit of PERF.md §2
+PEAK_MEMORY_MAX = 40e9                      # device-memory limit of PERF.md §2
+DENSE_BATCHES = 20                          # phase 4b: batches of 16
+CHURN_DOCS = 65_536                         # phase 4c: churn sample
 
 
 def log(msg: str) -> None:
@@ -135,6 +154,7 @@ def main(argv=None) -> int:
     ap.add_argument("--docs", type=int, default=SHARD_DOCS)
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure",
@@ -204,7 +224,19 @@ def main(argv=None) -> int:
         log(f"[3 kernels] sinnamon_score_topk {cell}: merged slots and values "
             f"bit-equal to the twin (B={Bc}, L={Lc}, h={H}, m={M}, C={C}, "
             f"kprime={KPRIME})")
-    del bits, sk, opnds
+        dense_opnds = (qv, rows, brows, bits, sk)
+        kc = sinnamon_score.sinnamon_score(*dense_opnds)
+        tc = sinnamon_score.sinnamon_score_plain(*dense_opnds)
+        torch.cuda.synchronize()
+        if kc.shape != (Bc, C) or not torch.equal(kc.view(torch.int32),
+                                                  tc.view(torch.int32)):
+            raise AssertionError(f"kernel C != twin for {cell} cells")
+        log(f"[3 kernels] sinnamon_score (dense) {cell}: f32[{Bc}, {C}] "
+            f"bit-equal to the twin (L={Lc}, h={H}, m={M}, "
+            f"{int((brows < 0).sum())} padded and "
+            f"{int(((qv <= 0) & (brows >= 0)).sum())} non-positive "
+            f"coordinates)")
+    del bits, sk, opnds, dense_opnds, kc, tc
 
     n_rows = C
     idx = torch.randint(-1, N, (n_rows, P), generator=gen, device=dev,
@@ -288,14 +320,12 @@ def main(argv=None) -> int:
                 raise AssertionError(f"bad result for batch {bsz}: "
                                      f"{res.ids.shape}")
         answers[bsz] = (lo, res)
-        lat[bsz] = request_latency(walls, bsz)
+        lat[f"fused B={bsz}"] = request_latency(walls, bsz)
     counts = kernels.launch_counts()
     log(f"[4 main] served batches of 16 and 256 (k={K}, k'={KPRIME}); "
         f"launches {counts}")
-    for kname, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {kname} was not launched on the "
-                                 f"main path")
+    check_path_launches(counts, "fused", ("sinnamon_score_topk", "csr_score"),
+                        ("sinnamon_score",))
 
     staged = QueryServer(index, k=K, kprime=KPRIME, trace_every=1)
     lo, res16 = answers[16]
@@ -318,14 +348,7 @@ def main(argv=None) -> int:
 
     lo, res256 = answers[256]
     qi256, qv256 = q_idx[lo:lo + 256], q_val[lo:lo + 256]
-    q_dense = vecstore.densify_query(N, qi256, qv256)
-    exact = ops.exact_scores_all(index.state.store, q_dense)
-    exact = torch.where(index.state.active[None, :], exact, -torch.inf)
-    _, top = sinnamon_score.topk_desc(exact, K)
-    truth = index.state.ids[top.long()].cpu().numpy()
-    recall = sum(len(set(a.tolist()) & set(b.tolist()))
-                 for a, b in zip(res256.ids, truth)) / (256 * K)
-    del exact
+    recall = recall_at_k(res256.ids, exact_top_ids(index, qi256, qv256))
     log(f"[4 main] recall@{K}={recall:.4f} over 256 queries against the "
         f"exact LinScan (csr_score)")
     if recall < RECALL_MIN:
@@ -336,8 +359,105 @@ def main(argv=None) -> int:
     log(f"[4 main] small index (2,048 docs, k'=capacity) answers equal the "
         f"exact top-{K}: {small_ok}")
 
+    # -- 4b. the dense path: kernel C behind the score_fn hook -------------------
+    score_fn = ops.make_engine_score_fn()
+    dense = QueryServer(index, k=K, kprime=KPRIME, score_fn=score_fn)
+    kernels.reset_launch_counts()
+    dense.query_many(q_idx[:16], q_val[:16])                # warm-up
+    walls, dense_answers = [], []
+    for i in range(DENSE_BATCHES):
+        lo = (i * 16) % (512 - 16 + 1)
+        t0 = time.perf_counter()
+        res = dense.query_many(q_idx[lo:lo + 16], q_val[lo:lo + 16])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if res.ids.shape != (16, K) or not np_all_finite(res.scores) \
+                or res.backend != "custom":
+            raise AssertionError(f"bad dense result: {res.ids.shape} "
+                                 f"{res.backend}")
+        dense_answers.append((lo, res))
+    dense_counts = kernels.launch_counts()
+    lat["dense B=16"] = request_latency(walls, 16)
+    log(f"[4b dense] served {DENSE_BATCHES} batches of 16 through "
+        f"QueryServer(score_fn=ops.make_engine_score_fn()) (k={K}, "
+        f"k'={KPRIME}); launches {dense_counts}")
+    check_path_launches(dense_counts, "dense", ("sinnamon_score",
+                                                "csr_score"),
+                        ("sinnamon_score_topk",))
+
+    lo, res_d = dense_answers[-1]
+    qi_d, qv_d = q_idx[lo:lo + 16].contiguous(), q_val[lo:lo + 16].contiguous()
+    cv, cs = eng.topk_candidates(index.state, index.spec, qi_d, qv_d, KPRIME,
+                                 score_fn=score_fn)
+    rv, rs = eng.topk_candidates(index.state, index.spec, qi_d, qv_d, KPRIME,
+                                 backend="reference")
+    if not (torch.equal(cs, rs) and torch.equal(cv.view(torch.int32),
+                                                rv.view(torch.int32))):
+        raise AssertionError("dense-path candidates != reference backend's")
+    log(f"[4b dense] one batch of 16: kernel C candidates (upper bounds and "
+        f"slots, k'={KPRIME}) bit-equal to the on-card reference backend")
+    res_f = server.query_many(qi_d, qv_d)
+    if (res_f.ids == res_d.ids).all():
+        log("[4b dense] ids == the fused path's ids on the same batch")
+    else:
+        # Kernel A adds the coordinates in the same order, so its candidates
+        # are the same; ids can then differ only between equal exact scores.
+        log(f"[4b dense] ids differ from the fused path's at "
+            f"{int((res_f.ids != res_d.ids).sum())} places; exact scores "
+            f"must be equal")
+        if not np.array_equal(res_f.scores, res_d.scores):
+            raise AssertionError("dense-path answer != fused-path answer")
+    truth = np.concatenate([exact_top_ids(index, q_idx[lo:lo + 16],
+                                          q_val[lo:lo + 16])
+                            for lo, _ in dense_answers])
+    recall_dense = recall_at_k(np.concatenate([r.ids for _, r in
+                                               dense_answers]), truth)
+    log(f"[4b dense] recall@{K}={recall_dense:.4f} over "
+        f"{DENSE_BATCHES * 16} queries against the exact LinScan")
+    if recall_dense < RECALL_MIN:
+        raise AssertionError(f"dense recall@{K}={recall_dense:.4f} < "
+                             f"{RECALL_MIN}")
+
     # -- 5. times ---------------------------------------------------------------
+    kernel_rows = times(index, card, q_idx, q_val, answers, counts,
+                        dense_counts, lat, t_start)
+
+    # -- 4c. the evaluation path (after the served index is freed) -------------
+    del index, server, staged, dense, res_f, cv, cs, rv, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_path(corpus_idx, corpus_val, q_idx[:256], q_val[:256], args.seed,
+              dev)
+
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
+        f"{time.perf_counter() - t_start:.1f}s")
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"peak device memory {peak / 1e9:.2f} GB >= "
+                             f"{PEAK_MEMORY_MAX / 1e9:.0f} GB")
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
+          t_start):
+    """Phase 5: CUDA-event times of every kernel and its twin at the main
+    paths' shapes, their bounds, the serving latencies; returns the kernels
+    JSON rows."""
+    import torch
+
+    from repro_torch.kernels import csr_score, ops, sinnamon_score
+    from repro_torch.storage import vecstore
+
     st, spec = index.state, index.spec
+    C = st.sketch.shape[1]
+    lo, _ = answers[16]
+    qi16, qv16 = q_idx[lo:lo + 16].contiguous(), q_val[lo:lo + 16].contiguous()
+    lo, _ = answers[256]
+    qi256, qv256 = q_idx[lo:lo + 256], q_val[lo:lo + 256]
+    q_dense = vecstore.densify_query(N, qi256, qv256)
     qv_op, rows_op, brows_op, sk_op, one_sided = ops.prepare_fused_operands(
         st, spec, qi256, qv256)
     tile = sinnamon_score.TILE_C
@@ -399,7 +519,34 @@ def main(argv=None) -> int:
     lib_err = finite_max_err((csr @ qcol)[:, 0],
                              csr_score.csr_score(q1, st.store.indices,
                                                  st.store.values)[0])
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del csr, qcol
+
+    # kernel C at the dense path's shape (B=16) and at B=256
+    c16 = ops.prepare_fused_operands(st, spec, qi16, qv16)
+    c16_args = c16[:3] + (st.bits, c16[3])
+    c_ms = cuda_ms(lambda: sinnamon_score.sinnamon_score(
+        *c16_args, one_sided=one_sided), reps=10)
+    c_plain_ms = cuda_ms(lambda: sinnamon_score.sinnamon_score_plain(
+        *c16_args, one_sided=one_sided), reps=3)
+    c256_args = (qv_op, rows_op, brows_op, st.bits, sk_op)
+    c256_ms = cuda_ms(lambda: sinnamon_score.sinnamon_score(
+        *c256_args, one_sided=one_sided), reps=5)
+    kc = sinnamon_score.sinnamon_score(*c16_args, one_sided=one_sided)
+    pc = sinnamon_score.sinnamon_score_plain(*c16_args, one_sided=one_sided)
+    if not torch.equal(kc.view(torch.int32), pc.view(torch.int32)):
+        raise AssertionError("kernel C != twin on the dense-path batch")
+    c_err = finite_max_err(kc, pc)
+    del kc, pc
+    c_bytes, c_ops = kernel_c_work(st, *c16[:3], one_sided)
+    c_bound = max(c_bytes / HBM_BYTES_PER_S, c_ops / F32_OPS_PER_S) * 1e3
+    c256_bytes, c256_ops = kernel_c_work(st, qv_op, rows_op, brows_op,
+                                         one_sided)
+    c256_bound = max(c256_bytes / HBM_BYTES_PER_S,
+                     c256_ops / F32_OPS_PER_S) * 1e3
+    # the per-query form: each query's own sketch and bitmap rows
+    n_coords = int((c16[2] >= 0).sum())
+    c_bound_pq = (n_coords * (H * C * st.sketch.element_size() + C // 8)
+                  + 16 * C * 4) / HBM_BYTES_PER_S * 1e3
 
     log(f"[5 times] on {card}:")
     log(f"[5 times]   sinnamon_score_topk B=256 L={qv_op.shape[1]}: "
@@ -413,12 +560,17 @@ def main(argv=None) -> int:
     log(f"[5 times]   csr_score LinScan B=1 C={C}: {s_ms:.4f} ms (twin "
         f"{s_plain_ms:.3f} ms, torch.sparse CSR mv {s_lib_ms:.4f} ms, "
         f"bound {s_bound:.4f} ms; library max abs diff {lib_err:.3g})")
-    for bsz, p in lat.items():
-        log(f"[5 times]   serving B={bsz}: request latency (batch wall "
+    log(f"[5 times]   sinnamon_score (dense) B=16 L={c16[0].shape[1]}: "
+        f"{c_ms:.3f} ms (twin {c_plain_ms:.3f} ms, bound {c_bound:.4f} ms, "
+        f"per-query form {c_bound_pq:.3f} ms); B=256 {c256_ms:.3f} ms "
+        f"(bound {c256_bound:.4f} ms)")
+    for key, p in lat.items():
+        log(f"[5 times]   serving {key}: request latency (batch wall "
             f"time) p50 {p['p50']:.4f} ms, p99 {p['p99']:.4f} ms over "
             f"{p['batches']} batches; throughput {p['qps']:.1f} queries/s")
-    log(f"[5 times]   peak device memory {peak_gb:.2f} GiB; whole run "
-        f"{time.perf_counter() - t_start:.1f}s")
+    log(f"[5 times]   peak device memory so far "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t_start:.1f}s into the run")
 
     src = "src/repro_torch/kernels/csrc"
     kernel_rows = [
@@ -444,12 +596,100 @@ def main(argv=None) -> int:
          "bound_ms_every_gathered_row": b_bound_pq,
          "linscan_ms": s_ms, "linscan_plain_ms": s_plain_ms,
          "linscan_bound_ms": s_bound, "linscan_library_ms": s_lib_ms},
+        {"name": "sinnamon_score", "route": "cuda",
+         "source": f"{src}/sinnamon_dense.cu",
+         "replaces": "src/repro/kernels/sinnamon_score.py:211",
+         "launches": dense_counts["sinnamon_score"], "max_abs_err": c_err,
+         "ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound,
+         "bound_by": "bytes" if c_bytes / HBM_BYTES_PER_S
+         >= c_ops / F32_OPS_PER_S else "operations",
+         "library_ms": None, "shape": f"B=16 L={c16[0].shape[1]} C={C}",
+         "bound_ms_per_query": c_bound_pq, "ms_b256": c256_ms,
+         "bound_ms_b256": c256_bound},
     ]
-    print(json.dumps({"kernels": kernel_rows}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
-    return 0
+    return kernel_rows
+
+
+def eval_path(doc_idx, doc_val, q_idx, q_val, seed, dev) -> None:
+    """Phase 4c: the recall frontier with the bound check over three lever
+    points, and the churn -> compact drift trajectory on a sample."""
+    from repro_torch.core import theory
+    from repro_torch.eval import bounds, recall
+
+    t0 = time.perf_counter()
+    points = [dict(m=M, sketch_kind="full", kprime=KPRIME),
+              dict(m=M, sketch_kind="lite", kprime=KPRIME),
+              dict(m=M, sketch_kind="full", kprime=KPRIME, budget=16)]
+    pts = recall.frontier(
+        doc_idx, doc_val, q_idx, q_val, N, points, k=K, h=H, seed=seed,
+        bounds_params=dict(value_dist=theory.lognormal_dist(sigma=0.6)),
+        device=dev)
+    for pt in pts:
+        b = pt["bounds"]
+        tails = ", ".join(f"d={c['delta']}: {c['empirical']:.4f} vs "
+                          f"{c['bound']:.4f}" for c in b["checks"])
+        log(f"[4c eval] m={pt['m']} {pt['sketch_kind']} {pt['cell_dtype']} "
+            f"k'={pt['kprime']} budget={pt['budget']}: recall@{K}="
+            f"{pt['recall_at_k']:.4f} MRR={pt['mrr']:.4f} p50="
+            f"{pt['p50_ms']:.4f} ms p99={pt['p99_ms']:.4f} ms per query "
+            f"(B={len(q_idx)}); sketch {pt['sketch_bytes']} B, index "
+            f"{pt['index_bytes']} B; bound check ok={b['ok']} min_err="
+            f"{b['min_err']:.3g} margin={b['margin']:.3g} sum_p="
+            f"{b['sum_p']:.2f} over {b['n_coords']} coords ({tails})")
+        if b["min_err"] < -b["margin"]:
+            raise AssertionError(f"Theorem 5.1 violated at {pt}: an upper "
+                                 f"bound undershoots by {-b['min_err']}")
+    if pts[0]["recall_at_k"] < RECALL_MIN:
+        raise AssertionError(f"frontier full point recall@{K}="
+                             f"{pts[0]['recall_at_k']:.4f} < {RECALL_MIN}")
+    spec = recall.lever_spec(N, CHURN_DOCS, P, m=M, h=H, seed=seed)
+    ch = bounds.churn_overestimate(spec, doc_idx[:CHURN_DOCS],
+                                   doc_val[:CHURN_DOCS], rounds=2, frac=0.25,
+                                   seed=seed, device=dev)
+    log(f"[4c eval] churn on {CHURN_DOCS} docs (2 rounds of 25%): "
+        + "; ".join(f"{k} err_max={ch[k]['err_max']:.4f} err_mean="
+                    f"{ch[k]['err_mean']:.4f} drift_max={ch[k]['drift_max']}"
+                    for k in ("clean", "churned", "compacted"))
+        + f"; {ch['columns_rebuilt']} columns rebuilt")
+    # The store keeps f32 values (lever_spec), so a compacted column is the
+    # exact re-encoding of its document: no storage rounding is left, and
+    # the drift must be exactly 0.
+    if ch["compacted"]["drift_max"] != 0.0 or ch["churned"]["drift_max"] <= 0:
+        raise AssertionError(f"compaction did not remove the drift: {ch}")
+    log(f"[4c eval] done in {time.perf_counter() - t0:.1f}s")
+
+
+def check_path_launches(counts: dict, path: str, launched, not_launched):
+    """Each kernel of ``launched`` ran on this path, none of
+    ``not_launched`` did."""
+    for kname in launched:
+        if counts[kname] <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the "
+                                 f"{path} path")
+    for kname in not_launched:
+        if counts[kname] != 0:
+            raise AssertionError(f"kernel {kname} ran on the {path} path")
+
+
+def recall_at_k(ids, truth) -> float:
+    return sum(len(set(a.tolist()) & set(b.tolist()))
+               for a, b in zip(ids, truth)) / (len(truth) * K)
+
+
+def exact_top_ids(index, qi, qv):
+    """Exact top-K ids of queries [b, Lq] over the live documents: kernel B's
+    LinScan, gated to active slots, then ``topk_desc``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sinnamon_score import topk_desc
+    from repro_torch.storage import vecstore
+
+    st = index.state
+    exact = ops.exact_scores_all(st.store, vecstore.densify_query(N, qi, qv))
+    exact = torch.where(st.active[None, :], exact, -torch.inf)
+    _, top = topk_desc(exact, K)
+    return st.ids[top.long()].cpu().numpy()
 
 
 def request_latency(walls_ms, bsz) -> dict:
@@ -467,23 +707,41 @@ def np_all_finite(x) -> bool:
     return bool(np.isfinite(x).all())
 
 
-def kernel_a_work(state, qv, rows, brows, C, kp):
-    """Bytes and f32 operations kernel A needs for this batch: each sketch
-    row and bitmap row the batch references read once, the per-slot gate,
-    the outputs written once; one multiply-add per (coordinate, member
-    slot) pair of this run's posting lists."""
-    import torch
+def kernel_c_work(state, qv, rows, brows, one_sided):
+    """Bytes and f32 operations kernel C needs for this batch: the sketch
+    and bitmap rows of :func:`scoring_work`, the operands, the f32[B, C]
+    output written once.  Without a lower sketch a coordinate with q <= 0
+    reads nothing."""
     valid = brows >= 0
-    cell = state.sketch.element_size()
+    if not one_sided:
+        valid &= qv > 0
+    C = state.sketch.shape[1]
+    nbytes, ops = scoring_work(state, rows, brows, valid)
+    return (nbytes + qv.shape[0] * C * 4 + qv.numel() * 8 + rows.numel() * 4,
+            ops)
+
+
+def kernel_a_work(state, qv, rows, brows, C, kp):
+    """Bytes and f32 operations kernel A needs for this batch: the sketch
+    and bitmap rows of :func:`scoring_work`, the per-slot gate, the
+    outputs written once."""
+    nbytes, ops = scoring_work(state, rows, brows, brows >= 0)
+    B, T = qv.shape[0], -(-C // 8192)
+    return nbytes + C + B * T * kp * 8 + qv.numel() * 12, ops
+
+
+def scoring_work(state, rows, brows, valid):
+    """Each sketch row and bitmap row the ``valid`` coordinates reference,
+    read once, in bytes; one multiply-add per (coordinate, member slot)
+    pair of this run's posting lists."""
+    import torch
+    C = state.sketch.shape[1]
     sk_rows = torch.unique(rows[valid]).numel()
     bit_rows = torch.unique(brows[valid]).numel()
-    B, T = qv.shape[0], -(-C // 8192)
-    nbytes = (sk_rows * C * cell + bit_rows * C // 8 + C
-              + B * T * kp * 8 + qv.numel() * 12)
     df = doc_freq(state)
-    b_idx = brows.clamp_min(0).long()
-    pairs = int(torch.where(valid, df[b_idx], 0).sum())
-    return nbytes, 2 * pairs
+    pairs = int(torch.where(valid, df[brows.clamp_min(0).long()], 0).sum())
+    return (sk_rows * C * state.sketch.element_size() + bit_rows * C // 8,
+            2 * pairs)
 
 
 def doc_freq(state):

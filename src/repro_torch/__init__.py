@@ -7,12 +7,14 @@ imports neither JAX nor any module of ``repro``.  Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.
 
     repro_torch.api      — IndexConfig + open_index (single device)
-    repro_torch.core     — sketch, bit-packed index, engine, SinnamonIndex
+    repro_torch.core     — sketch, bit-packed index, engine, SinnamonIndex,
+                           §5 theory, LinScan and WAND baselines
     repro_torch.kernels  — CUDA kernels for Hopper + plain twins + dispatch
     repro_torch.storage  — padded-CSR vector store
     repro_torch.serving  — QueryServer, QueryResult
     repro_torch.convert  — carry a reference index's state into the port
     repro_torch.data     — synthetic corpora (draw-identical to repro's)
+    repro_torch.eval     — recall frontier, §5 bound check, auto-tuner
     repro_torch.launch   — serving launcher
 """
 

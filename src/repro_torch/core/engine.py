@@ -26,7 +26,8 @@ Keeping [U; L] stacked makes the fused kernel's operand a view instead of a
 Retrieval = Algorithm 6 (budgeted upper-bound scoring) + Algorithm 7
 (top-k' candidates → exact rerank → top-k).  Deletion = bit-clear + slot
 recycling (§4.3): the sketch column is left dirty and the next insert
-merges into it (max into u, min into l).
+merges into it (max into u, min into l); :func:`compact_state` rebuilds
+the dirty columns from the raw vectors.
 """
 
 from __future__ import annotations
@@ -316,6 +317,51 @@ def grow_state(state: SinnamonState, spec: EngineSpec,
 
 
 # ---------------------------------------------------------------------------
+# Sketch compaction (§4.3 churn residue)
+# ---------------------------------------------------------------------------
+
+def fresh_sketch(state: SinnamonState, spec: EngineSpec):
+    """Exact sketch re-encoded from the raw vectors in the store:
+    (u [m, C], l [m, C] or None).  Erased slots encode to zero columns; no
+    recycled-slot residue (the Theorem 5.1-tight reference)."""
+    u, l = sketch.encode_batch(state.mappings, spec.m, state.store.indices,
+                               state.store.values.to(torch.float32),
+                               dtype=spec.dtype,
+                               positive_only=spec.upper_only)
+    return u.T, None if l is None else l.T
+
+
+def compact_state(state: SinnamonState, spec: EngineSpec) -> SinnamonState:
+    """Rebuild every dirty sketch column from the store, in place, and
+    clear ``dirty``; returns ``state``.
+
+    Dirty+active columns become the document's fresh sketch, dirty+inactive
+    (deleted, not recycled) columns zero; clean columns keep their bits.
+    """
+    u_f, l_f = fresh_sketch(state, spec)
+    fresh = _ints(u_f) if l_f is None else torch.cat([_ints(u_f),
+                                                      _ints(l_f)])
+    cells = _ints(state.sketch)
+    cells.copy_(torch.where(state.dirty[None, :], fresh, cells))
+    state.dirty.zero_()
+    return state
+
+
+def slot_drift(state: SinnamonState, spec: EngineSpec) -> Tensor:
+    """Per-slot sketch overestimate against a fresh sketch, f32[C]: the max
+    over cells of how far the stored upper bound sits above the tight one
+    (and the stored lower bound below it).  0 for inactive slots, and for
+    clean slots when the store keeps f32 values."""
+    u_f, l_f = fresh_sketch(state, spec)
+    f32 = torch.float32
+    over = (state.u.to(f32) - u_f.to(f32)).clamp_min(0.0).amax(dim=0)
+    if state.l is not None:
+        over = torch.maximum(
+            over, (l_f.to(f32) - state.l.to(f32)).clamp_min(0.0).amax(dim=0))
+    return torch.where(state.active, over, 0.0)
+
+
+# ---------------------------------------------------------------------------
 # Algorithm 6 scoring (reference and grouped backends)
 # ---------------------------------------------------------------------------
 
@@ -386,24 +432,34 @@ def score_grouped(state, spec, q_idx, q_val, budget=None) -> Tensor:
 
 def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
                     q_val: Tensor, kprime: int, budget: Optional[int] = None,
-                    filter_mask: Optional[Tensor] = None,
+                    filter_mask: Optional[Tensor] = None, score_fn=None,
                     backend: Optional[str] = None,
                     use_kernel: Optional[bool] = None):
     """Batched candidate generation -> (upper_bounds f32[B, kprime],
     slots int32[B, kprime]) in (upper bound desc, slot asc) order, the same
-    order for every backend (``reference | grouped | fused``; None ->
-    ``fused``).  ``use_kernel`` is passed to the fused path's kernel."""
+    order for every backend (``reference | grouped | fused``; None -> see
+    ``ops.resolve_backend``).  ``use_kernel`` is passed to the fused path's
+    kernel.
+
+    ``score_fn`` overrides the backend with a dense scorer.  It is
+    batch-native, ``score_fn(state, spec, q_idx, q_val, budget) ->
+    f32[B, C]`` (``ops.make_engine_score_fn`` runs kernel C); its scores
+    are gated and cut with ``topk_desc``, the ``lax.top_k`` order.
+    """
     from repro_torch.kernels import ops as _ops
     from repro_torch.kernels.sinnamon_score import topk_desc
 
     ok = state.active if filter_mask is None else (state.active & filter_mask)
     backend = _ops.resolve_backend(backend)
-    if backend == "fused":
+    if score_fn is None and backend == "fused":
         return _ops.sinnamon_topk_batch(state, spec, q_idx, q_val, kprime,
                                         budget=budget, ok=ok,
                                         use_kernel=use_kernel)
-    s = score_batch(state, spec, q_idx, q_val, budget,
-                    grouped=backend == "grouped")
+    if score_fn is not None:
+        s = score_fn(state, spec, q_idx, q_val, budget)
+    else:
+        s = score_batch(state, spec, q_idx, q_val, budget,
+                        grouped=backend == "grouped")
     return topk_desc(torch.where(ok[None, :], s, -torch.inf), kprime)
 
 
@@ -430,13 +486,14 @@ def rerank_topk(state: SinnamonState, cand_scores: Tensor, cand_slots: Tensor,
 
 
 def search_batch(state, spec, q_idx, q_val, k, kprime, budget=None,
-                 filter_mask=None, backend: Optional[str] = None,
+                 filter_mask=None, score_fn=None,
+                 backend: Optional[str] = None,
                  use_kernel: Optional[bool] = None):
     """Batched search [B, Lq] -> (ids int64[B, k], scores f32[B, k],
-    slots int32[B, k])."""
+    slots int32[B, k]); ``score_fn`` as in :func:`topk_candidates`."""
     cand_scores, cand_slots = topk_candidates(
         state, spec, q_idx, q_val, kprime, budget, filter_mask,
-        backend=backend, use_kernel=use_kernel)
+        score_fn=score_fn, backend=backend, use_kernel=use_kernel)
     return rerank_topk(state, cand_scores, cand_slots, q_idx, q_val, k,
                        use_kernel=use_kernel)
 
@@ -576,23 +633,25 @@ class SinnamonIndex:
             else self._tensor(filter_mask, torch.bool)
 
     def search(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
-               budget: Optional[int] = None, filter_mask=None,
+               budget: Optional[int] = None, filter_mask=None, score_fn=None,
                backend: Optional[str] = None):
         ids, scores = self.search_many(np.asarray(q_idx)[None],
                                        np.asarray(q_val)[None], k, kprime,
-                                       budget, filter_mask, backend)
+                                       budget, filter_mask, score_fn, backend)
         return ids[0], scores[0]
 
     def search_many(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
                     budget: Optional[int] = None, filter_mask=None,
-                    backend: Optional[str] = None):
+                    score_fn=None, backend: Optional[str] = None):
         """Batched search: q_idx/q_val [B, Lq] -> (ids int64[B, k],
-        scores f32[B, k]) as numpy arrays."""
+        scores f32[B, k]) as numpy arrays.  ``score_fn`` (batch-native, see
+        :func:`topk_candidates`) overrides the backend."""
         k, kprime = self._sizes(k, kprime)
         ids, scores, _ = search_batch(
             self.state, self.spec, self._tensor(q_idx, torch.int32),
             self._tensor(q_val, torch.float32), k, kprime, budget,
-            self._filter(filter_mask), backend=self._backend(backend))
+            self._filter(filter_mask), score_fn=score_fn,
+            backend=self._backend(backend))
         return ids.cpu().numpy(), scores.cpu().numpy()
 
     def search_many_sketch(self, q_idx, q_val, k: int,
@@ -618,6 +677,20 @@ class SinnamonIndex:
         self.spec = new_spec
         self._free = (list(range(new_capacity - 1, spec.capacity - 1, -1))
                       + self._free)
+
+    # -- maintenance -----------------------------------------------------------
+    def compact(self) -> int:
+        """Rebuild all dirty sketch columns from the store (restores the
+        Theorem 5.1 tightness lost to §4.3 churn); returns the number of
+        columns rebuilt."""
+        n_dirty = int(self.state.dirty.sum())
+        if n_dirty:
+            compact_state(self.state, self.spec)
+        return n_dirty
+
+    def slot_drift(self) -> np.ndarray:
+        """Per-slot sketch overestimate against a fresh sketch (f32[C])."""
+        return slot_drift(self.state, self.spec).cpu().numpy()
 
     @property
     def size(self) -> int:

@@ -250,3 +250,22 @@ def decode_coord(mappings: Tensor, u: Tensor, l: Optional[Tensor], j):
     if l is None:
         return ub, torch.zeros_like(ub)
     return ub, cell_rows(l, rows).amax(dim=0)
+
+
+def decode_vector(mappings: Tensor, u: Tensor, l: Optional[Tensor],
+                  idx: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-coordinate (ub, lb) of sketched vectors: u, l [..., m] (one
+    sketch per leading index), idx [..., P] active coordinates (pad -1).
+    ``lb`` is zeros when ``l`` is None.  The §5 error analysis decodes
+    through this."""
+    safe = torch.where(idx >= 0, idx, 0).long()
+    rows = mappings[:, safe].long()                         # [h, ..., P]
+
+    def cells(s: Tensor) -> Tensor:
+        x = s.to(torch.float32)
+        return torch.stack([torch.gather(x, -1, r) for r in rows])
+
+    ub = cells(u).amin(dim=0)
+    if l is None:
+        return ub, torch.zeros_like(ub)
+    return ub, cells(l).amax(dim=0)

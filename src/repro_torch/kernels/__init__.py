@@ -10,7 +10,8 @@ from repro_torch.kernels import sinnamon_score as _sinn
 
 #: Every kernel wrapper of the package; each carries a ``launches`` count.
 WRAPPERS = {"sinnamon_score_topk": _sinn.sinnamon_score_topk,
-            "csr_score": _csr.csr_score}
+            "csr_score": _csr.csr_score,
+            "sinnamon_score": _sinn.sinnamon_score}
 
 
 def launch_counts() -> dict:

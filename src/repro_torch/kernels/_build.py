@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-KERNELS = ("sinnamon_score", "csr_score")
+KERNELS = ("sinnamon_score", "csr_score", "sinnamon_dense")
 
 #: Shared memory one block may use on Hopper (sm_90), in bytes.
 SMEM_PER_BLOCK = 232_448
@@ -65,9 +65,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> tuple:
+    """(source, library, log) of kernel ``name``; the library's name hashes
+    the source, the shared headers of ``csrc/`` and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(key + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
     return src, lib, lib.with_suffix(".log")
 

@@ -21,17 +21,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sketch_cells.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
-
-struct Bf16 { uint16_t bits; };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-__device__ __forceinline__ float to_f32(Bf16 v) {
-  return __uint_as_float(static_cast<uint32_t>(v.bits) << 16);
-}
 
 template <typename Val>
 __global__ void __launch_bounds__(kThreads)

@@ -9,6 +9,11 @@ candidate generation through one selector:
 * ``reference`` — the coordinate-at-a-time ``engine.score_batch`` + a dense
   top-k; the correctness oracle.
 
+Select per call (``backend=...``), per server (``score_backend``) or
+process-wide with the ``REPRO_SCORE_BACKEND`` environment variable.  A
+``score_fn`` (:func:`make_engine_score_fn`: kernel C) overrides the backend
+with a dense scorer.
+
 Each function dispatches on the device of its tensors: the CUDA kernel for
 CUDA tensors, its plain twin for CPU tensors (``use_kernel`` overrides:
 False runs the twin on the card too, which is how the kernels are checked).
@@ -16,6 +21,7 @@ False runs the twin on the card too, which is how the kernels are checked).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -26,12 +32,15 @@ from repro_torch.kernels import sinnamon_score as _sinn
 Tensor = torch.Tensor
 
 SCORE_BACKENDS = ("reference", "grouped", "fused")
+SCORE_BACKEND_ENV = "REPRO_SCORE_BACKEND"
 DEFAULT_SCORE_BACKEND = "fused"
 
 
 def resolve_backend(backend: Optional[str] = None) -> str:
-    """Validate a backend choice; None -> ``fused``."""
-    backend = DEFAULT_SCORE_BACKEND if backend is None else backend
+    """Validate a backend choice; None -> ``$REPRO_SCORE_BACKEND``, else
+    ``fused``."""
+    if backend is None:
+        backend = os.environ.get(SCORE_BACKEND_ENV, DEFAULT_SCORE_BACKEND)
     if backend not in SCORE_BACKENDS:
         raise ValueError(f"unknown score backend {backend!r}; "
                          f"expected one of {SCORE_BACKENDS}")
@@ -129,6 +138,33 @@ def sinnamon_topk_batch(state, spec, q_idx, q_val, kprime: int, *,
                                      budget=budget, ok=ok,
                                      use_kernel=use_kernel)
     return _sinn.merge_tile_topk(vals, slots, kprime)
+
+
+def sinnamon_score_batch(state, qv: Tensor, rows: Tensor,
+                         brows: Tensor) -> Tensor:
+    """Kernel C over a query batch: Algorithm 6 upper bounds f32[B, C],
+    ungated, from the first three operands of :func:`prepare_fused_operands`
+    (rows pre-offset into the stacked sketch)."""
+    return _sinn.sinnamon_score(qv, rows, brows, state.bits, state.sketch,
+                                one_sided=state.l is not None)
+
+
+def make_engine_score_fn():
+    """A ``score_fn`` for ``engine.topk_candidates`` / ``search_batch``,
+    ``SinnamonIndex.search_many`` and ``QueryServer``: kernel C on CUDA
+    tensors, its plain twin on CPU tensors.
+
+    The hook is batch-native: ``score_fn(state, spec, q_idx[B, Lq],
+    q_val[B, Lq], budget) -> f32[B, C]`` (the reference's hook is per query
+    and vmapped; a kernel launch cannot be vmapped).
+    """
+
+    def score_fn(state, spec, q_idx, q_val, budget=None):
+        qv, rows, brows, _, _ = prepare_fused_operands(state, spec, q_idx,
+                                                       q_val, budget)
+        return sinnamon_score_batch(state, qv, rows, brows)
+
+    return score_fn
 
 
 def exact_scores_all(store, q_dense: Tensor, *,

@@ -1,22 +1,27 @@
-"""Kernel A: fused Algorithm 6 candidate generation (score → per-tile top-kp).
+"""Kernels A and C: Algorithm 6 upper-bound scoring on the card.
 
-Replaces the Pallas TPU kernel ``sinnamon_score_topk`` of
-``repro/kernels/sinnamon_score.py``.  The CUDA source is
-``csrc/sinnamon_score.cu``; its header says what bounds the kernel on an
-H100 (bitmap and sketch bytes) and how the design meets that.
+* Kernel A, :func:`sinnamon_score_topk`: fused candidate generation (score
+  -> per-tile top-kp).  Replaces the Pallas TPU kernel
+  ``sinnamon_score_topk`` of ``repro/kernels/sinnamon_score.py``; CUDA
+  source ``csrc/sinnamon_score.cu``.  :func:`merge_tile_topk` merges the
+  per-tile buffers into the global top-k' — plain torch, as the merge is
+  XLA in the reference.
+* Kernel C, :func:`sinnamon_score`: dense upper bounds f32[B, C] (the
+  ``score_fn`` hook's scorer).  Replaces the Pallas TPU kernel
+  ``sinnamon_score``; CUDA source ``csrc/sinnamon_dense.cu``.
 
-:func:`sinnamon_score_topk` launches the kernel for CUDA tensors and raises
-if the build or the launch fails; for CPU tensors it runs the plain twin
-:func:`sinnamon_score_topk_plain`, which computes the same function with
-the same per-slot float program (coordinates added one at a time, in
-order), so the two agree bit for bit on the card.
-:func:`merge_tile_topk` merges the per-tile buffers into the global
-top-k' — plain torch, as the merge is XLA in the reference.
+Each source's header says what bounds the kernel on an H100 and how the
+design meets that.  Each wrapper launches its kernel for CUDA tensors and
+raises if the build or the launch fails; for CPU tensors it runs its plain
+twin (:func:`sinnamon_score_topk_plain`, :func:`sinnamon_score_plain`).
+Both twins share one per-slot float program (:func:`sinnamon_score_plain`:
+coordinates added one at a time, in order), which the kernels repeat, so
+kernel and twin agree bit for bit on the card.
 
-Operands differ from the TPU kernel's in one place: membership comes as
+Operands differ from the TPU kernels' in one place: membership comes as
 ``brows`` (each coordinate's bitmap row, -1 for a padded coordinate) plus
-the bitmap ``bits`` itself, instead of pre-gathered words.  The kernel
-reads the words it needs; at a 1.1M-slot shard the pre-gathered block
+the bitmap ``bits`` itself, instead of pre-gathered words.  The kernels
+read the words they need; at a 1.1M-slot shard the pre-gathered block
 would be L·C/8 bytes per query.
 """
 
@@ -32,11 +37,12 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: Slots per block of the CUDA kernel (``kTileC`` in the source).
+#: Slots per block of kernel A (``kTileC`` in its source).
 TILE_C = 8192
 
 _CELL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _TWO32 = 1 << 32
+_MAX_GRID_Y = 65_535
 
 
 # -- the (score desc, slot asc) order key -------------------------------------
@@ -83,26 +89,23 @@ def merge_tile_topk(vals: Tensor, slots: Tensor, kprime: int):
     return split_key(key)
 
 
-# -- plain twin -----------------------------------------------------------------
+# -- plain twins -----------------------------------------------------------------
 
-def sinnamon_score_topk_plain(qv: Tensor, rows: Tensor, brows: Tensor,
-                              bits: Tensor, ok: Tensor, skmat: Tensor, *,
-                              kp: int, tile_c: int = TILE_C,
-                              one_sided: bool = True):
-    """Plain-torch twin of the kernel: same operands, same result.
+def sinnamon_score_plain(qv: Tensor, rows: Tensor, brows: Tensor,
+                         bits: Tensor, skmat: Tensor, *,
+                         one_sided: bool = True) -> Tensor:
+    """Plain-torch twin of kernel C: upper bounds f32[B, C].
 
-    qv f32[B, L]; rows int32[B, L, h] (pre-offset by +m for negative
-    coordinates when ``one_sided``); brows int32[B, L] (-1 = padded);
-    bits int32[nrows, C/32]; ok bool[C]; skmat [R, C].  Returns
-    (vals f32[B, T, kp], slots int32[B, T, kp]) with T = ceil(C / tile_c);
-    slots past C are gated to -inf.
+    qv f32[B, L]; rows int32[B, L, h] (pre-offset by +m for coordinates
+    with q <= 0 when ``one_sided``); brows int32[B, L] (-1 = padded);
+    bits int32[nrows, C/32]; skmat [R, C].  Coordinate t adds
+    ``q * min`` over its U rows (q > 0) or ``q * max`` over its L rows
+    (q <= 0; ``q * 0`` without a lower sketch) at each member slot, for
+    t = 0 .. L-1 in order.
     """
     B, L = qv.shape
     h = rows.shape[-1]
     C = skmat.shape[1]
-    if kp > tile_c:
-        raise ValueError(f"kp={kp} cannot exceed tile_c={tile_c}")
-    T = -(-C // tile_c)
     pos = qv > 0
     acc = torch.zeros((B, C), dtype=torch.float32, device=qv.device)
     for t in range(L):
@@ -122,6 +125,26 @@ def sinnamon_score_topk_plain(qv: Tensor, rows: Tensor, brows: Tensor,
         mask = bitindex.unpack_row(bits[br.clamp_min(0).long()])
         mask = mask & (br >= 0)[:, None]
         acc = acc + torch.where(mask, contrib, 0.0)
+    return acc
+
+
+def sinnamon_score_topk_plain(qv: Tensor, rows: Tensor, brows: Tensor,
+                              bits: Tensor, ok: Tensor, skmat: Tensor, *,
+                              kp: int, tile_c: int = TILE_C,
+                              one_sided: bool = True):
+    """Plain-torch twin of kernel A: same operands, same result.
+
+    The operands of :func:`sinnamon_score_plain` plus ok bool[C].  Returns
+    (vals f32[B, T, kp], slots int32[B, T, kp]) with T = ceil(C / tile_c);
+    slots past C are gated to -inf.
+    """
+    B = qv.shape[0]
+    C = skmat.shape[1]
+    if kp > tile_c:
+        raise ValueError(f"kp={kp} cannot exceed tile_c={tile_c}")
+    T = -(-C // tile_c)
+    acc = sinnamon_score_plain(qv, rows, brows, bits, skmat,
+                               one_sided=one_sided)
     s = torch.where(ok[None, :], acc, -torch.inf)
     s = torch.nn.functional.pad(s, (0, T * tile_c - C), value=-torch.inf)
     slot_ids = torch.arange(T * tile_c, device=qv.device).expand(B, -1)
@@ -130,7 +153,7 @@ def sinnamon_score_topk_plain(qv: Tensor, rows: Tensor, brows: Tensor,
     return split_key(key)
 
 
-# -- CUDA kernel ----------------------------------------------------------------
+# -- CUDA kernels ---------------------------------------------------------------
 
 def _lib():
     lib = _build.load("sinnamon_score")
@@ -147,6 +170,18 @@ def _lib():
     return lib
 
 
+def _dense_lib():
+    lib = _build.load("sinnamon_dense")
+    fn = lib.sinnamon_dense_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+        lib.sinnamon_dense_run.argtypes = []
+        lib.sinnamon_dense_run.restype = ctypes.c_int
+    return lib
+
+
 def _check(t: Tensor, name: str, dtype, ndim: int, device) -> None:
     if t.dtype != dtype or t.dim() != ndim or t.device != device \
             or not t.is_contiguous():
@@ -155,30 +190,40 @@ def _check(t: Tensor, name: str, dtype, ndim: int, device) -> None:
                          f"{t.device} (contiguous={t.is_contiguous()})")
 
 
-def _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided):
-    if kp > TILE_C:
-        raise ValueError(f"kp={kp} cannot exceed TILE_C={TILE_C}")
+def _check_scoring(qv, rows, brows, bits, skmat, smem_fixed: int):
+    """Validate the operands kernels A and C share -> (B, L, h, C); raises
+    when a block would need more than the card's shared memory."""
     dev = qv.device
     B, L = qv.shape
     h = rows.shape[-1]
-    R, C = skmat.shape
+    C = skmat.shape[1]
     _check(qv, "qv", torch.float32, 2, dev)
     _check(rows, "rows", torch.int32, 3, dev)
     _check(brows, "brows", torch.int32, 2, dev)
     _check(bits, "bits", torch.int32, 2, dev)
-    _check(ok, "ok", torch.bool, 1, dev)
     if skmat.dtype not in _CELL_KIND:
         raise ValueError(f"skmat dtype {skmat.dtype} not supported")
     _check(skmat, "skmat", skmat.dtype, 2, dev)
-    if rows.shape[:2] != (B, L) or brows.shape != (B, L) or ok.shape != (C,) \
+    if rows.shape[:2] != (B, L) or brows.shape != (B, L) \
             or bits.shape[1] * bitindex.WORD != C:
         raise ValueError("operand shapes disagree: "
                          f"qv {tuple(qv.shape)} rows {tuple(rows.shape)} "
-                         f"brows {tuple(brows.shape)} ok {tuple(ok.shape)} "
-                         f"bits {tuple(bits.shape)} skmat {tuple(skmat.shape)}")
-    smem = TILE_C * 8 + L * (2 + h) * 4
+                         f"brows {tuple(brows.shape)} bits "
+                         f"{tuple(bits.shape)} skmat {tuple(skmat.shape)}")
+    smem = smem_fixed + L * (2 + h) * 4
     if smem > _build.SMEM_PER_BLOCK:
         raise ValueError(f"L={L}, h={h} need {smem} B of shared memory")
+    return B, L, h, C
+
+
+def _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided):
+    if kp > TILE_C:
+        raise ValueError(f"kp={kp} cannot exceed TILE_C={TILE_C}")
+    dev = qv.device
+    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat, TILE_C * 8)
+    _check(ok, "ok", torch.bool, 1, dev)
+    if ok.shape != (C,):
+        raise ValueError(f"ok {tuple(ok.shape)} != ({C},)")
     T = -(-C // TILE_C)
     vals = torch.empty((B, T, kp), dtype=torch.float32, device=dev)
     slots = torch.empty((B, T, kp), dtype=torch.int32, device=dev)
@@ -195,26 +240,64 @@ def _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided):
     return vals, slots
 
 
+def _launch_dense(qv, rows, brows, bits, skmat, one_sided):
+    dev = qv.device
+    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat, 0)
+    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    lib = _dense_lib()
+    if -(-C // lib.sinnamon_dense_run()) > _MAX_GRID_Y:
+        raise ValueError(f"C={C} slots exceed the kernel's grid")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.sinnamon_dense_launch(
+        _CELL_KIND[skmat.dtype], qv.data_ptr(), rows.data_ptr(),
+        brows.data_ptr(), bits.data_ptr(), skmat.data_ptr(), B, L, h, C,
+        bits.shape[1], int(one_sided), out.data_ptr(), stream)
+    _build.check(err, "sinnamon_score")
+    sinnamon_score.launches += 1
+    return out
+
+
+def _use_kernel(use_kernel: Optional[bool], qv: Tensor) -> bool:
+    """None -> the kernel for CUDA tensors, the twin for CPU tensors; True
+    on CPU tensors raises."""
+    if use_kernel is None:
+        return qv.is_cuda
+    if use_kernel and not qv.is_cuda:
+        raise ValueError("the CUDA kernel needs CUDA tensors")
+    return use_kernel
+
+
 def sinnamon_score_topk(qv: Tensor, rows: Tensor, brows: Tensor,
                         bits: Tensor, ok: Tensor, skmat: Tensor, *, kp: int,
                         one_sided: bool = True,
                         use_kernel: Optional[bool] = None):
-    """Fused scoring + per-tile top-kp over tiles of ``TILE_C`` slots:
-    (vals f32[B, T, kp], slots int32[B, T, kp]); feed to
+    """Kernel A: fused scoring + per-tile top-kp over tiles of ``TILE_C``
+    slots: (vals f32[B, T, kp], slots int32[B, T, kp]); feed to
     :func:`merge_tile_topk`.
 
     ``use_kernel`` None launches the CUDA kernel for CUDA tensors and runs
     the plain twin for CPU tensors; False forces the twin (the comparison
     path); True on CPU tensors raises.
     """
-    if use_kernel is None:
-        use_kernel = qv.is_cuda
-    if use_kernel:
-        if not qv.is_cuda:
-            raise ValueError("the CUDA kernel needs CUDA tensors")
+    if _use_kernel(use_kernel, qv):
         return _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided)
     return sinnamon_score_topk_plain(qv, rows, brows, bits, ok, skmat, kp=kp,
                                      one_sided=one_sided)
 
 
+def sinnamon_score(qv: Tensor, rows: Tensor, brows: Tensor, bits: Tensor,
+                   skmat: Tensor, *, one_sided: bool = True,
+                   use_kernel: Optional[bool] = None) -> Tensor:
+    """Kernel C: dense Algorithm 6 upper bounds f32[B, C] (operands of
+    :func:`sinnamon_score_plain`, ungated).  ``use_kernel`` as for
+    :func:`sinnamon_score_topk`."""
+    if _use_kernel(use_kernel, qv):
+        return _launch_dense(qv, rows, brows, bits, skmat, one_sided)
+    return sinnamon_score_plain(qv, rows, brows, bits, skmat,
+                                one_sided=one_sided)
+
+
 sinnamon_score_topk.launches = 0
+sinnamon_score.launches = 0

@@ -67,14 +67,20 @@ class QueryServer:
     """Serves one single-device :class:`SinnamonIndex`.
 
     ``score_backend`` picks the scoring backend per server (``reference |
-    grouped | fused``; None -> the index default, then ``fused``).
+    grouped | fused``; None -> the index default, then
+    ``ops.resolve_backend``).  ``score_fn`` (batch-native, e.g.
+    ``ops.make_engine_score_fn()``: kernel C) overrides it; results are then
+    labelled ``custom``, no batch runs the staged path and ``degrade >= 2``
+    does not answer sketch-only (it shrinks k' as ``degrade=1`` does).
     """
 
     def __init__(self, index: eng.SinnamonIndex, k: int = 10,
                  kprime: Optional[int] = 1000, budget: Optional[int] = None,
-                 score_backend: Optional[str] = None, trace_every: int = 0):
+                 score_fn=None, score_backend: Optional[str] = None,
+                 trace_every: int = 0):
         self.index = index
         self.k, self.kprime, self.budget = k, kprime, budget
+        self.score_fn = score_fn
         self.score_backend = score_backend
         self.trace_every = int(trace_every)
         self.stats = {"queries": 0}
@@ -84,6 +90,8 @@ class QueryServer:
         self._latency = collections.deque(maxlen=LATENCY_WINDOW)
 
     def _backend_label(self) -> str:
+        if self.score_fn is not None:
+            return "custom"
         backend = self.score_backend
         if backend is None:
             backend = getattr(self.index, "default_backend", None)
@@ -96,7 +104,7 @@ class QueryServer:
         t0 = time.perf_counter()
         ids, scores = self.index.search(
             q_idx, q_val, k=self.k, kprime=self.kprime, budget=self.budget,
-            backend=self.score_backend)
+            score_fn=self.score_fn, backend=self.score_backend)
         self._record(1, (time.perf_counter() - t0) * 1e3)
         return QueryResult(ids=ids, scores=scores, k=len(ids),
                            backend=backend, trace_id=new_trace_id())
@@ -106,13 +114,14 @@ class QueryServer:
 
         Per-query latency is batch time / B.  ``degrade`` (the front door's
         ladder level): 1 shrinks the rerank candidate pool to k'/4; >= 2
-        answers sketch-only (scores become upper bounds).  Degraded answers
-        are stamped ``degraded=True``.
+        answers sketch-only (scores become upper bounds) unless a
+        ``score_fn`` is set.  Degraded answers are stamped ``degraded=True``.
         """
         bn = len(q_idx)
         backend = self._backend_label()
         trace = None
-        if self.trace_every > 0 and degrade == 0:
+        custom = self.score_fn is not None
+        if self.trace_every > 0 and degrade == 0 and not custom:
             self._since_trace += 1
             if self._since_trace >= self.trace_every:
                 self._since_trace = 0
@@ -120,7 +129,7 @@ class QueryServer:
         t0 = time.perf_counter()
         if trace is not None:
             ids, scores = self._search_staged(q_idx, q_val, trace)
-        elif degrade >= 2:
+        elif degrade >= 2 and not custom:
             ids, scores = self.index.search_many_sketch(
                 q_idx, q_val, k=self.k, budget=self.budget,
                 backend=self.score_backend)
@@ -132,7 +141,7 @@ class QueryServer:
                 kprime = max(self.k, kprime // 4)
             ids, scores = self.index.search_many(
                 q_idx, q_val, k=self.k, kprime=kprime, budget=self.budget,
-                backend=self.score_backend)
+                score_fn=self.score_fn, backend=self.score_backend)
         self._record(bn, (time.perf_counter() - t0) * 1e3)
         if trace is not None:
             self.last_trace = trace

@@ -1,7 +1,8 @@
 """Kernel-against-twin checks on the card (marker ``gpu``).
 
-Each CUDA kernel of ``repro_torch`` is run at small shapes on CUDA tensors
-and held against its plain-torch twin on the same tensors.  The tests skip
+Each CUDA kernel of ``repro_torch`` (A: ``sinnamon_score_topk``, B:
+``csr_score``, C: ``sinnamon_score``) is run at small shapes on CUDA
+tensors and held against its plain-torch twin on the same tensors.  The tests skip
 when no CUDA device is present; the decision is made inside a fixture, so
 every worker collects the same tests.  Run them on the card with
 
@@ -82,6 +83,67 @@ def test_sinnamon_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C, kprime,
     pv, ps = sinnamon_score.merge_tile_topk(tv, ts, kprime)
     assert torch.equal(gs, ps) and torch.equal(gv, pv)
     assert int(gs.max()) < C
+
+
+@pytest.mark.parametrize("cell,B,L,h,m,C,one_sided", [
+    ("f32", 2, 5, 2, 8, 384, True),
+    ("bf16", 3, 7, 1, 16, 19_968, True),           # C not a multiple of 2048
+    ("f8", 2, 9, 3, 8, 16_384, True),
+    ("bf16", 4, 6, 2, 8, 8_224, False),            # no lower sketch
+    ("f8", 1, 64, 1, 64, 4_128, False),
+    ("f32", 5, 3, 3, 16, 2_080, True),
+    ("bf16", 0, 4, 1, 8, 256, True),               # empty batch
+])
+def test_dense_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C,
+                                        one_sided):
+    """Kernel C == its plain twin bit for bit (brows = -1 and q = 0
+    coordinates included in every case)."""
+    rng = np.random.default_rng(B * 7 + C)
+    qv, rows, brows, bits, _, sk = [
+        t.to(cuda) for t in _fused_operands(rng, B, L, h, m, C, 40,
+                                            CELLS[cell], one_sided)]
+    before = sinnamon_score.sinnamon_score.launches
+    got = sinnamon_score.sinnamon_score(qv, rows, brows, bits, sk,
+                                        one_sided=one_sided)
+    assert sinnamon_score.sinnamon_score.launches == before + (B > 0)
+    want = sinnamon_score.sinnamon_score_plain(qv, rows, brows, bits, sk,
+                                               one_sided=one_sided)
+    torch.cuda.synchronize()
+    assert got.shape == (B, C)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("budget", [None, 5])
+def test_dense_path_on_card_matches_reference_backend(cuda, budget):
+    """The ``score_fn`` path on the card: candidates bit-equal to the
+    on-card ``reference`` backend, ids equal to the CPU index's."""
+    from repro_torch.kernels import ops
+
+    ds = synth.SparseDatasetSpec("t", n=500, psi_doc=24, psi_query=12)
+    idx, val = synth.make_corpus(0, ds, 300, pad=48)
+    qi, qv = synth.make_queries(1, ds, 8, pad=24)
+    spec = teng.EngineSpec(n=500, m=16, h=2, capacity=320, max_nnz=48,
+                           value_dtype="float32", seed=3)
+    fn = ops.make_engine_score_fn()
+    ids = {}
+    for dev in ("cpu", "cuda"):
+        index = teng.SinnamonIndex(spec, device=dev)
+        index.insert_many(list(range(280)), idx[:280], val[:280])
+        index.delete_many(list(range(0, 280, 5)))
+        index.insert_many(list(range(280, 300)), idx[280:], val[280:])
+        ids[dev], _ = index.search_many(qi, qv, k=10, kprime=60,
+                                        budget=budget, score_fn=fn)
+    np.testing.assert_array_equal(ids["cuda"], ids["cpu"])
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=cuda)  # noqa: E731
+    q = (t(qi, torch.int32), t(qv, torch.float32))
+    before = sinnamon_score.sinnamon_score.launches
+    cv, cs = teng.topk_candidates(index.state, spec, *q, 60, budget,
+                                  score_fn=fn)
+    assert sinnamon_score.sinnamon_score.launches == before + 1
+    rv, rs = teng.topk_candidates(index.state, spec, *q, 60, budget,
+                                  backend="reference")
+    assert torch.equal(cs, rs)
+    assert torch.equal(cv.view(torch.int32), rv.view(torch.int32))
 
 
 @pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
