@@ -8,14 +8,16 @@ shard of the paper's MS MARCO deployment (``serve_msmarco``: n=30,000,
 m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
 
 1. device   — the card's name, count and power limit;
-2. build    — the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build    — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
               (one nvcc per source, started together), with ptxas's
               registers and shared memory;
 3. kernels  — each kernel against its plain twin on the card, at the main
               paths' shapes: kernel A + merge bit-equal to the twin + merge
               and kernel C bit-equal to its twin (bf16 and f8 cells, signed
               queries, padded coordinates); kernel B's rerank and LinScan
-              within rtol = atol = 1e-5 (the sum order differs);
+              within rtol = atol = 1e-5 (the sum order differs); kernel D
+              bit-equal to its twin (f32 and bf16 tables, D in {18, 64},
+              F in {1, 4, 40}, pads, signed weights, and ``mean``);
 4. main     — the fused path: ``open_index`` + ``insert_many`` of the
               shard, ``delete_many`` of 1/16 of it and re-insert into the
               dirty slots, serve batches of 16 and 256 through
@@ -39,11 +41,36 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               lever points with the Eq. (13) bound check (no Theorem 5.1
               undershoot beyond the quantization margin), and the
               churn -> compact drift trajectory on a sample (compaction must
-              return the drift to 0).  Peak device memory stays < 40 GB.
+              return the drift to 0);
+6a. recsys  — DLRM-rm2 (``repro_torch.configs.dlrm_rm2.full_config()``:
+              26 × 1,000,000 × 64 f32 tables, 6.66 GB, drawn on the card
+              from ``--seed``) served through ``models.recsys``: 1,000
+              batches at ``serve_p99`` (B=512; p99 then has 10 samples
+              beyond it) and 5 at ``serve_bulk`` (B=262,144) through
+              ``score``, 1,000 ``retrieval_cand`` requests (B=1,
+              ``retrieval_scores`` + top-100); request latency p50/p99 (the
+              features copied to the card, the forward, the result copied
+              back), samples/s and, under torch.profiler, the device busy
+              share and the largest kernels of each request kind; logits
+              finite, kernel-path logits and bags bit-equal to the twin
+              path's on the flattened 6.66 GB table (indices past row
+              8,388,607: 64-bit offsets), kernel D once per forward and A,
+              B, C never; kernel D's times against its twin, its byte bound
+              and ``F.embedding_bag``; the forward's time against its f32
+              FLOP bound;
+6b. recsys retrieval — the item catalog (field 0's 1,000,000 rows)
+              sparsified to its top-16 |value| coordinates in a Sinnamon
+              index (n=64, m=8, h=1, f32 raw values), 256 users'
+              ``user_repr`` served through ``search_many`` (k=10, k'=200):
+              recall@10 against the dense exact top-10 (the cost of
+              sparsifying) and against the exact sparse top-10 (kernel B's
+              LinScan); kernel-path ids == twin-path ids; A and B launch.
+              Peak device memory stays < 40 GB.
 
 Launch counts are read per path: kernels A and B must launch on the fused
-path, C and B on the dense path (and A not at all there).  Ends with a JSON
-line of per-kernel numbers, the card's ``nvidia-smi`` line and
+path, C and B on the dense path (and A not at all there), D on neither;
+D alone on the recsys path.  Ends with a JSON line of the recsys numbers, a
+JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
 directory without the package.
@@ -72,6 +99,8 @@ RECALL_MIN = 0.95                           # recall@10 limit of PERF.md §2
 PEAK_MEMORY_MAX = 40e9                      # device-memory limit of PERF.md §2
 DENSE_BATCHES = 20                          # phase 4b: batches of 16
 CHURN_DOCS = 65_536                         # phase 4c: churn sample
+P99_BATCHES, BULK_BATCHES, RETRIEVAL_REQUESTS = 1000, 5, 1000  # phase 6a
+ITEM_NNZ, ITEM_M, ITEM_KPRIME, USERS = 16, 8, 200, 256      # phase 6b
 
 
 def log(msg: str) -> None:
@@ -91,6 +120,48 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of ``fn`` over ``reps`` calls issued without a
+    sync: the caller's own time per launch while the card keeps up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
+def device_profile(fn, calls: int):
+    """(wall ms per call, {kernel name: device ms per call}) over ``calls``
+    calls of ``fn`` under ``torch.profiler`` (CUDA activity only).  An
+    empty dict means the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    by_name = {e.key: e.self_device_time_total / 1e3 / calls
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+    return wall, by_name
+
+
+def busy_summary(wall: float, by_name: dict, top: int = 5) -> dict:
+    """Device busy share of a profiled window and its largest kernels."""
+    busy = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall, "device_ms": busy if by_name else None,
+            "busy_share": busy / wall if by_name else None,
+            "top_kernels_ms": {k[:80]: v for k, v in ranked}}
 
 
 def draw_sparse(gen, rows: int, psi: int, pad: int, cdf, device):
@@ -258,6 +329,7 @@ def main(argv=None) -> int:
         f"err {err_rerank:.3g}; LinScan over {n_rows} rows max abs err "
         f"{err_scan:.3g} (rtol=atol=1e-5)")
     del idx, val, got, want
+    kernel_d_against_twin(gen, dev)
     torch.cuda.empty_cache()
 
     # -- 4. main path at full width -------------------------------------------
@@ -325,7 +397,7 @@ def main(argv=None) -> int:
     log(f"[4 main] served batches of 16 and 256 (k={K}, k'={KPRIME}); "
         f"launches {counts}")
     check_path_launches(counts, "fused", ("sinnamon_score_topk", "csr_score"),
-                        ("sinnamon_score",))
+                        ("sinnamon_score", "embed_bag"))
 
     staged = QueryServer(index, k=K, kprime=KPRIME, trace_every=1)
     lo, res16 = answers[16]
@@ -382,7 +454,7 @@ def main(argv=None) -> int:
         f"k'={KPRIME}); launches {dense_counts}")
     check_path_launches(dense_counts, "dense", ("sinnamon_score",
                                                 "csr_score"),
-                        ("sinnamon_score_topk",))
+                        ("sinnamon_score_topk", "embed_bag"))
 
     lo, res_d = dense_answers[-1]
     qi_d, qv_d = q_idx[lo:lo + 16].contiguous(), q_val[lo:lo + 16].contiguous()
@@ -428,12 +500,20 @@ def main(argv=None) -> int:
     eval_path(corpus_idx, corpus_val, q_idx[:256], q_val[:256], args.seed,
               dev)
 
+    # -- 6a / 6b. DLRM-rm2 serving and its users' retrieval --------------------
+    del corpus_idx, corpus_val, q_idx, q_val
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_row, recsys_line = recsys_path(args.seed, dev, card)
+    kernel_rows.append(d_row)
+
     peak = torch.cuda.max_memory_allocated()
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
         f"{time.perf_counter() - t_start:.1f}s")
     if peak >= PEAK_MEMORY_MAX:
         raise AssertionError(f"peak device memory {peak / 1e9:.2f} GB >= "
                              f"{PEAK_MEMORY_MAX / 1e9:.0f} GB")
+    print(json.dumps({"recsys": recsys_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -657,6 +737,392 @@ def eval_path(doc_idx, doc_val, q_idx, q_val, seed, dev) -> None:
     if ch["compacted"]["drift_max"] != 0.0 or ch["churned"]["drift_max"] <= 0:
         raise AssertionError(f"compaction did not remove the drift: {ch}")
     log(f"[4c eval] done in {time.perf_counter() - t0:.1f}s")
+
+
+def kernel_d_against_twin(gen, dev) -> None:
+    """Phase 3, kernel D: bit-equal to its twin for f32 and bf16 tables,
+    D in {18, 64} (scalar and 16-byte loads), F in {1, 4, 40}, 20% pads and
+    signed weights, and ``mean`` through ``ops.embed_bag``."""
+    import torch
+
+    from repro_torch.kernels import embed_bag, ops
+    V, bags = 5_000, 4_096
+    cases = 0
+    for cell in (torch.float32, torch.bfloat16):
+        for D in (18, 64):
+            table = torch.randn((V, D), generator=gen, device=dev).to(cell)
+            for F in (1, 4, 40):
+                idx = torch.randint(0, V, (bags, F), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                pad = torch.rand((bags, F), generator=gen, device=dev) < 0.2
+                idx = torch.where(pad, -1, idx)
+                w = torch.randn((bags, F), generator=gen, device=dev)
+                pairs = [(embed_bag.embed_bag(table, idx, w),
+                          embed_bag.embed_bag_plain(table, idx, w)),
+                         (ops.embed_bag(table, idx, w, mode="mean"),
+                          ops.embed_bag(table, idx, w, mode="mean",
+                                        use_kernel=False))]
+                torch.cuda.synchronize()
+                for got, want in pairs:
+                    if got.shape != (bags, D) or not torch.equal(
+                            got.view(torch.int32), want.view(torch.int32)):
+                        raise AssertionError(f"kernel D != twin for {cell} "
+                                             f"D={D} F={F}")
+                cases += 2
+    log(f"[3 kernels] embed_bag: {cases} cases bit-equal to the twin "
+        f"({bags} bags, V={V}; f32 and bf16 tables, D in (18, 64), F in "
+        f"(1, 4, 40), 20% pads, signed weights; sum and mean)")
+
+
+def dlrm_flops(cfg, B: int) -> int:
+    """f32 operations of one DLRM forward at batch B: both MLPs and the
+    (F+1)² Gram interaction, as ``src/repro/launch/cells.py:181-192``
+    counts them."""
+    D = cfg.embed_dim
+    dims_b = (cfg.n_dense,) + tuple(cfg.bot_mlp)
+    dims_t = (cfg.bot_mlp[-1] + (cfg.n_sparse + 1) * cfg.n_sparse // 2,
+              ) + tuple(cfg.top_mlp)
+    mlp = sum(a * b for a, b in zip(dims_b[:-1], dims_b[1:])) + \
+        sum(a * b for a, b in zip(dims_t[:-1], dims_t[1:]))
+    inter = (cfg.n_sparse + 1) ** 2 * D
+    return 2 * B * (mlp + inter)
+
+
+def recsys_path(seed: int, dev, card: str):
+    """Phases 6a and 6b on DLRM-rm2 at full width; returns (kernel D's
+    JSON row, the recsys JSON line)."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import loaders
+    from repro_torch.models import recsys
+
+    cfg = dlrm_rm2.full_config()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = recsys.DLRM(cfg, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    table_bytes = model.tables.numel() * model.tables.element_size()
+    mlp_bytes = sum(p.numel() * p.element_size()
+                    for n, p in model.named_parameters() if n != "tables")
+    log(f"[6a recsys] {cfg.name} drawn on the card in "
+        f"{time.perf_counter() - t_phase:.1f}s: tables "
+        f"{tuple(model.tables.shape)} f32 = {table_bytes} B "
+        f"({table_bytes / 1e9:.2f} GB), MLPs {mlp_bytes} B")
+
+    def host_batch(step, B):
+        """The client's batch, on the host (drawn before any clock)."""
+        return loaders.recsys_batch(seed, step, B, cfg, device="cpu")
+
+    def on_card(hb):
+        """The features DLRM reads, copied to the card."""
+        return hb._replace(dense=hb.dense.to(dev), sparse=hb.sparse.to(dev))
+
+    def serve(hb):
+        return recsys.score(model, on_card(hb), cfg).cpu()
+
+    k_ret = dlrm_rm2.SHAPES["retrieval_cand"]["k"]
+
+    def retrieve(hb):
+        s = recsys.retrieval_scores(model, on_card(hb), cfg)
+        top = torch.topk(s, k_ret)
+        return top.values.cpu(), top.indices.cpu()
+
+    B_p99 = dlrm_rm2.SHAPES["serve_p99"]["batch"]
+    B_bulk = dlrm_rm2.SHAPES["serve_bulk"]["batch"]
+    B_ret = dlrm_rm2.SHAPES["retrieval_cand"]["batch"]
+    serve(host_batch(0, B_p99))                         # warm-up
+    serve(host_batch(1, B_bulk))
+    retrieve(host_batch(2, B_ret))
+    kernels.reset_launch_counts()
+    lat, forwards = {}, 0
+    for name, B, n in (("serve_p99", B_p99, P99_BATCHES),
+                       ("serve_bulk", B_bulk, BULK_BATCHES),
+                       ("retrieval_cand", B_ret, RETRIEVAL_REQUESTS)):
+        walls = []
+        for i in range(n):
+            hb = host_batch(1000 * (len(lat) + 1) + i, B)
+            t0 = time.perf_counter()
+            out = serve(hb) if name != "retrieval_cand" else retrieve(hb)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            forwards += 1
+            want = (B,) if name != "retrieval_cand" else (B, k_ret)
+            vals = out if name != "retrieval_cand" else out[0]
+            if tuple(vals.shape) != want or not torch.isfinite(vals).all():
+                raise AssertionError(f"bad {name} output: "
+                                     f"{tuple(vals.shape)}, want {want}")
+        lat[name] = request_latency(walls, B)
+    counts = kernels.launch_counts()
+    log(f"[6a recsys] served {P99_BATCHES} batches at B={B_p99}, "
+        f"{BULK_BATCHES} at B={B_bulk} and {RETRIEVAL_REQUESTS} "
+        f"retrieval_cand requests (top-{k_ret} of {cfg.n_items}): "
+        f"{forwards} forwards; launches {counts}")
+    if counts["embed_bag"] != forwards:
+        raise AssertionError(f"kernel D launched {counts['embed_bag']} "
+                             f"times in {forwards} forwards")
+    check_path_launches(counts, "recsys", ("embed_bag",),
+                        ("sinnamon_score_topk", "csr_score",
+                         "sinnamon_score"))
+
+    b = on_card(host_batch(0, B_p99))
+    lk = recsys.score(model, b, cfg)
+    lp = recsys.score(model, b, cfg, use_kernel=False)
+    ek = recsys.stacked_embedding_bag(model.tables, b.sparse)
+    ep = recsys.stacked_embedding_bag(model.tables, b.sparse,
+                                      use_kernel=False)
+    _, fidx = recsys.stacked_bag_operands(model.tables, b.sparse)
+    torch.cuda.synchronize()
+    max_row = int(fidx.max())
+    if not torch.equal(lk.view(torch.int32), lp.view(torch.int32)):
+        raise AssertionError("kernel-path logits != twin-path logits")
+    if not torch.equal(ek.view(torch.int32), ep.view(torch.int32)):
+        raise AssertionError("kernel D bags != twin bags on the rm2 table")
+    if max_row < 2**23:
+        raise AssertionError(f"indices reach row {max_row} only")
+    log(f"[6a recsys] B={B_p99}: kernel-path logits bit-equal to the "
+        f"twin path's; the [{B_p99}, {cfg.n_sparse}, {cfg.embed_dim}] bags "
+        f"bit-equal to the twin's on the flattened "
+        f"[{cfg.n_sparse * cfg.vocab_per_field}, {cfg.embed_dim}] table "
+        f"(rows up to {max_row})")
+    del lk, lp, ek, ep, fidx
+
+    profiles = {}
+    for name, B, calls, fn in (("serve_p99", B_p99, 20, serve),
+                               ("serve_bulk", B_bulk, 2, serve),
+                               ("retrieval_cand", B_ret, 20, retrieve)):
+        hb = host_batch(9000, B)
+        profiles[name] = busy_summary(*device_profile(lambda: fn(hb), calls))
+        p = profiles[name]
+        log(f"[6a recsys]   {name} under torch.profiler: wall "
+            f"{p['wall_ms']:.4f} ms per request, device busy "
+            + ("not measured (no device activity recorded)"
+               if p["busy_share"] is None else
+               f"{p['device_ms']:.4f} ms ({p['busy_share']:.3f}); largest: "
+               + "; ".join(f"{k} {v:.4f} ms"
+                           for k, v in p["top_kernels_ms"].items())))
+
+    d_row, fwd = kernel_d_times(model, cfg, host_batch, on_card, counts,
+                                card)
+    for name in ("serve_p99", "serve_bulk"):
+        lat[name].update(fwd[name])
+    for name, p in lat.items():
+        log(f"[6a recsys]   {name}: request latency p50 {p['p50']:.4f} ms, "
+            f"p99 {p['p99']:.4f} ms over {p['batches']} requests; "
+            f"{p['qps']:.1f} samples/s"
+            + (f"; forward alone {p['forward_ms']:.4f} ms (f32 FLOP bound "
+               f"{p['flop_bound_ms']:.4f} ms)" if "forward_ms" in p else ""))
+    log(f"[6a recsys] done in {time.perf_counter() - t_phase:.1f}s")
+
+    retrieval = recsys_retrieval(model, cfg, host_batch, on_card, seed, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"model": cfg.name, "table_bytes": table_bytes,
+            "mlp_bytes": mlp_bytes, "forwards": forwards,
+            "sinnamon_retrieval": retrieval, "profiles": profiles}
+    for name, p in lat.items():
+        line[name] = {"batch": {"retrieval_cand": B_ret, "serve_p99": B_p99,
+                                "serve_bulk": B_bulk}[name],
+                      "p50_ms": p["p50"], "p99_ms": p["p99"],
+                      "requests": p["batches"], "samples_per_s": p["qps"],
+                      **{k: p[k] for k in ("forward_ms", "flop_bound_ms")
+                         if k in p}}
+    return d_row, line
+
+
+def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
+    """Kernel D at both serving shapes (CUDA events per call, device time
+    alone, host time per call): against its twin, ``F.embedding_bag`` on
+    the same operands (the yardstick; the port never calls it) and its
+    byte bound; and the DLRM forward against its f32 FLOP bound.  At B=512 each launch takes the next of 32 batches' indices
+    (109 MB of rows, more than the 50 MB L2), so rows come from HBM, as
+    they do for a stream of requests."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as Fn
+
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.kernels import embed_bag
+    from repro_torch.models import recsys
+
+    D = cfg.embed_dim
+    elt = model.tables.element_size()
+    out, fwd, errs = {}, {}, []
+    for name, n_sets, reps in (("serve_p99", 32, 256), ("serve_bulk", 1, 10)):
+        B = dlrm_rm2.SHAPES[name]["batch"]
+        sets = []
+        for i in range(n_sets):
+            b = on_card(host_batch(5000 + i, B))
+            flat, fidx = recsys.stacked_bag_operands(model.tables, b.sparse)
+            valid = fidx >= 0
+            sets.append((b, flat, fidx, valid.to(torch.float32),
+                         torch.where(valid, fidx, 0).long()))
+        cyc = itertools.cycle(sets)
+        kernel = lambda: embed_bag.embed_bag(*next(cyc)[1:4])
+        library = lambda: (lambda s: Fn.embedding_bag(
+            s[4], s[1], mode="sum", per_sample_weights=s[3]))(next(cyc))
+        k_ms = cuda_ms(kernel, reps)
+        p_ms = cuda_ms(lambda: embed_bag.embed_bag_plain(*next(cyc)[1:4]),
+                       max(2, reps // 32))
+        l_ms = cuda_ms(library, reps)
+        k_host, l_host = host_ms(kernel, reps), host_ms(library, reps)
+        b, flat, fidx, w, safe = sets[0]
+        got = embed_bag.embed_bag(flat, fidx, w)
+        want = embed_bag.embed_bag_plain(flat, fidx, w)
+        lib = Fn.embedding_bag(safe, flat, mode="sum", per_sample_weights=w)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"kernel D != twin at {name}")
+        errs.append(finite_max_err(got, want))
+        lib_err = finite_max_err(got, lib)
+        # the function reads each distinct row the batch references once;
+        # the per-slot count (a row read at every valid slot) is kept beside
+        n_valid = int((fidx >= 0).sum())
+        n_rows = torch.unique(fidx[fidx >= 0]).numel()
+        io_bytes = fidx.numel() * 8 + fidx.shape[0] * D * 4
+        nbytes = n_rows * D * elt + io_bytes
+        n_ops = 2 * n_valid * D
+        bound = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+        bound_per_slot = max((n_valid * D * elt + io_bytes) / HBM_BYTES_PER_S,
+                             n_ops / F32_OPS_PER_S) * 1e3
+        # device time alone (the CUDA-event time includes any host gap
+        # between launches): kernel D's kernel, every kernel of the library
+        _, by_name = device_profile(kernel, reps)
+        dev_ms = sum(v for k, v in by_name.items()
+                     if "embed_bag_kernel" in k) or None
+        _, by_name = device_profile(library, reps)
+        lib_dev_ms = sum(by_name.values()) or None
+        out[name] = dict(B=B, bags=fidx.shape[0], ms=k_ms, device_ms=dev_ms,
+                         plain_ms=p_ms, library_ms=l_ms, host_ms=k_host,
+                         library_host_ms=l_host,
+                         library_device_ms=lib_dev_ms, bound_ms=bound,
+                         bound_ms_per_slot=bound_per_slot, bytes=nbytes,
+                         rows=n_rows,
+                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                         >= n_ops / F32_OPS_PER_S else "operations",
+                         library_err=lib_err)
+        f_ms = cuda_ms(lambda: recsys.score(model, b, cfg), max(3, reps // 4))
+        fwd[name] = {"forward_ms": f_ms, "flop_bound_ms":
+                     dlrm_flops(cfg, B) / F32_OPS_PER_S * 1e3}
+        prof = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"
+        log(f"[6a recsys]   embed_bag {name} (B={B}, {fidx.shape[0]} bags "
+            f"of {fidx.shape[1]}, {n_valid} valid slots on {n_rows} distinct "
+            f"rows) on {card}: {k_ms:.4f} ms, "
+            f"device alone {prof(dev_ms)}, host {k_host:.4f} ms per call "
+            f"(twin {p_ms:.4f} ms; F.embedding_bag {l_ms:.4f} ms, device "
+            f"alone {prof(lib_dev_ms)}, host {l_host:.4f} ms; bound "
+            f"{bound:.4f} ms = {nbytes} B, {bound_per_slot:.4f} ms reading a "
+            f"row per slot; "
+            f"library max abs diff {lib_err:.3g})")
+        del sets, got, want, lib
+        torch.cuda.empty_cache()
+    bulk, p99 = out["serve_bulk"], out["serve_p99"]
+    row = {"name": "embed_bag", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/embed_bag.cu",
+           "replaces": "src/repro/kernels/embed_bag.py:60",
+           "launches": counts["embed_bag"], "max_abs_err": max(errs),
+           "ms": bulk["ms"], "plain_ms": bulk["plain_ms"],
+           "bound_ms": bulk["bound_ms"], "bound_by": bulk["bound_by"],
+           "library_ms": bulk["library_ms"],
+           "bound_ms_per_slot": bulk["bound_ms_per_slot"],
+           "shape": f"B={bulk['B']} x {cfg.n_sparse} bags of "
+                    f"{cfg.multi_hot}, D={D}, table "
+                    f"[{cfg.n_sparse * cfg.vocab_per_field}, {D}]",
+           "device_ms": bulk["device_ms"],
+           "library_device_ms": bulk["library_device_ms"],
+           "host_ms": bulk["host_ms"],
+           "library_host_ms": bulk["library_host_ms"],
+           "ms_b512": p99["ms"], "device_ms_b512": p99["device_ms"],
+           "host_ms_b512": p99["host_ms"],
+           "library_host_ms_b512": p99["library_host_ms"],
+           "plain_ms_b512": p99["plain_ms"],
+           "library_device_ms_b512": p99["library_device_ms"],
+           "bound_ms_b512": p99["bound_ms"],
+           "bound_ms_per_slot_b512": p99["bound_ms_per_slot"],
+           "library_ms_b512": p99["library_ms"]}
+    return row, fwd
+
+
+def recsys_retrieval(model, cfg, host_batch, on_card, seed, dev) -> dict:
+    """Phase 6b: the item catalog sparsified into a Sinnamon index, the
+    model's users served through ``search_many``."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sinnamon_score import topk_desc
+    from repro_torch.models import recsys
+
+    t0 = time.perf_counter()
+    items = recsys.item_embeddings(model, cfg)
+    s_idx, s_val = recsys.sparsify_items(items, ITEM_NNZ)
+    spec = eng.EngineSpec(n=cfg.embed_dim, m=ITEM_M,
+                          capacity=-(-cfg.n_items // 32) * 32,
+                          max_nnz=ITEM_NNZ, h=1, value_dtype="float32",
+                          seed=seed)
+    index = eng.SinnamonIndex(spec, device=dev)
+    for lo in range(0, cfg.n_items, 32_768):
+        hi = min(lo + 32_768, cfg.n_items)
+        index.insert_many(range(lo, hi), s_idx[lo:hi], s_val[lo:hi])
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    users = recsys.user_repr(model, on_card(host_batch(7000, USERS)), cfg)
+    q_idx = torch.arange(cfg.embed_dim, dtype=torch.int32,
+                         device=dev).expand(USERS, -1).contiguous()
+    index.search_many(q_idx[:16], users[:16], k=K, kprime=ITEM_KPRIME)
+    kernels.reset_launch_counts()
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        ids, scores = index.search_many(q_idx, users, k=K,
+                                        kprime=ITEM_KPRIME)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launch_counts()
+    log(f"[6b recsys retrieval] {cfg.n_items} items sparsified to their "
+        f"top-{ITEM_NNZ} coordinates and indexed (n={cfg.embed_dim}, "
+        f"m={ITEM_M}, h=1, f32 values) in {t_build:.1f}s; 5 batches of "
+        f"{USERS} users (k={K}, k'={ITEM_KPRIME}); launches {counts}")
+    check_path_launches(counts, "recsys retrieval",
+                        ("sinnamon_score_topk", "csr_score"),
+                        ("sinnamon_score", "embed_bag"))
+    if ids.shape != (USERS, K) or not np.isfinite(scores).all():
+        raise AssertionError(f"bad retrieval result {ids.shape}")
+
+    dense_top = torch.topk(users @ items.t(), K).indices.cpu().numpy()
+    exact = ops.exact_scores_all(index.state.store, users.contiguous())
+    exact = torch.where(index.state.active[None, :], exact, -torch.inf)
+    _, top = topk_desc(exact, K)
+    sparse_top = index.state.ids[top.long()].cpu().numpy()
+    del exact, top
+    r_dense, r_sparse = recall_at_k(ids, dense_top), recall_at_k(ids,
+                                                                  sparse_top)
+    ids_k, _, _ = eng.search_batch(index.state, spec, q_idx[:16],
+                                   users[:16], K, ITEM_KPRIME)
+    ids_p, _, _ = eng.search_batch(index.state, spec, q_idx[:16],
+                                   users[:16], K, ITEM_KPRIME,
+                                   use_kernel=False)
+    if not torch.equal(ids_k, ids_p):
+        raise AssertionError("recsys retrieval: kernel-path ids != "
+                             "twin-path ids")
+    p = request_latency(walls, USERS)
+    log(f"[6b recsys retrieval] batch wall p50 {p['p50']:.4f} ms, p99 "
+        f"{p['p99']:.4f} ms ({p['qps']:.1f} users/s); recall@{K} "
+        f"{r_dense:.4f} against the dense exact top-{K} (the cost of "
+        f"keeping {ITEM_NNZ} of {cfg.embed_dim} coordinates), {r_sparse:.4f} "
+        f"against the exact sparse top-{K} (LinScan); kernel-path ids == "
+        f"twin-path ids on a batch of 16; {time.perf_counter() - t0:.1f}s")
+    del index
+    return {"items": cfg.n_items, "nnz": ITEM_NNZ, "m": ITEM_M,
+            "kprime": ITEM_KPRIME, "batch": USERS, "p50_ms": p["p50"],
+            "p99_ms": p["p99"], "users_per_s": p["qps"],
+            "recall_at_10_vs_dense": r_dense,
+            "recall_at_10_vs_sparse_exact": r_sparse,
+            "build_s": t_build}
 
 
 def check_path_launches(counts: dict, path: str, launched, not_launched):

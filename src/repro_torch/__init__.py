@@ -13,9 +13,12 @@ CUDA card unless the caller passes ``device="cpu"``.
     repro_torch.storage  — padded-CSR vector store
     repro_torch.serving  — QueryServer, QueryResult
     repro_torch.convert  — carry a reference index's state into the port
-    repro_torch.data     — synthetic corpora (draw-identical to repro's)
+    repro_torch.data     — synthetic corpora and recsys batches
+                           (draw-identical to repro's)
     repro_torch.eval     — recall frontier, §5 bound check, auto-tuner
     repro_torch.launch   — serving launcher
+    repro_torch.models   — DLRM serving (recsys), its bags on kernel D
+    repro_torch.configs  — dlrm-rm2 and the recsys shape table
 """
 
 __version__ = "0.1.0"

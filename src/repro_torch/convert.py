@@ -11,6 +11,9 @@ each leaf) and become the port's tensors bit for bit:
 
 With the free list and the id map, :meth:`SinnamonIndex.from_numpy` then
 searches the same state the JAX index holds.
+
+:func:`recsys_params_from_numpy` carries a reference DLRM parameter tree
+the same way into a :class:`repro_torch.models.recsys.DLRM`.
 """
 
 from __future__ import annotations
@@ -78,3 +81,22 @@ def state_from_numpy(leaves: dict, spec: eng.EngineSpec,
                                .copy()).to(device),
         m=spec.m,
     )
+
+
+def recsys_params_from_numpy(params: dict, cfg, device=None):
+    """A :class:`~repro_torch.models.recsys.DLRM` holding the reference's
+    DLRM parameters ``{"tables", "bot": {"w0", "b0", ...}, "top": ...}``
+    (numpy arrays, or anything ``np.asarray`` reads), on ``device`` (None:
+    the CUDA card).  Tables are copied as they are; each ``w{i}`` [in, out]
+    becomes the transposed ``nn.Linear.weight`` [out, in]."""
+    from repro_torch.models import recsys
+    model = recsys.DLRM(cfg, device=device, draw=False)
+    dtype = model.tables.dtype
+    leaf = lambda a: cells_from_numpy(np.asarray(a), dtype)  # noqa: E731
+    with torch.no_grad():
+        model.tables.copy_(leaf(params["tables"]))
+        for name in ("bot", "top"):
+            for i, lin in enumerate(getattr(model, name)):
+                lin.weight.copy_(leaf(params[name][f"w{i}"]).t())
+                lin.bias.copy_(leaf(params[name][f"b{i}"]))
+    return model

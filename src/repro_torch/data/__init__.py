@@ -1,2 +1,3 @@
-"""Synthetic sparse corpora (paper Table 3 shapes), shared draw-for-draw
-with the JAX reference."""
+"""Synthetic data shared draw-for-draw with the JAX reference: sparse
+corpora (paper Table 3 shapes, ``synth``) and recsys batches
+(``loaders``)."""

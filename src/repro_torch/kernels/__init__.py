@@ -6,12 +6,14 @@ this package builds nothing, so it imports on machines without a GPU.
 """
 
 from repro_torch.kernels import csr_score as _csr
+from repro_torch.kernels import embed_bag as _bag
 from repro_torch.kernels import sinnamon_score as _sinn
 
 #: Every kernel wrapper of the package; each carries a ``launches`` count.
 WRAPPERS = {"sinnamon_score_topk": _sinn.sinnamon_score_topk,
             "csr_score": _csr.csr_score,
-            "sinnamon_score": _sinn.sinnamon_score}
+            "sinnamon_score": _sinn.sinnamon_score,
+            "embed_bag": _bag.embed_bag}
 
 
 def launch_counts() -> dict:

@@ -21,10 +21,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-KERNELS = ("sinnamon_score", "csr_score", "sinnamon_dense")
+KERNELS = ("sinnamon_score", "csr_score", "sinnamon_dense", "embed_bag")
 
 #: Shared memory one block may use on Hopper (sm_90), in bytes.
 SMEM_PER_BLOCK = 232_448
@@ -51,6 +53,7 @@ class Built:
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_SM_COUNT: Dict[int, int] = {}
 
 
 def nvcc_path() -> str:
@@ -118,6 +121,18 @@ def load(name: str) -> ctypes.CDLL:
             raise KernelBuildFailure(f"cannot load {path}: {e}") from e
         _LOADED[name] = lib
     return lib
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of CUDA ``device``, read once per device
+    (the launch wrappers size their grids by it on every call)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = torch.cuda.get_device_properties(index).multi_processor_count
+        _SM_COUNT[index] = n
+    return n
 
 
 def check(err: int, what: str) -> None:

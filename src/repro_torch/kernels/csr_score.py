@@ -87,7 +87,7 @@ def _launch(q_dense, indices, values, slots):
     if B == 0 or K == 0:
         return out
     q_in_smem = int(n * 4 <= _build.SMEM_PER_BLOCK)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _build.sm_count(dev)
     grid_x = max(1, min(-(-K // _WARPS_PER_BLOCK), sms // B))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().csr_score_launch(

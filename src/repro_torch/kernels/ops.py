@@ -14,6 +14,9 @@ process-wide with the ``REPRO_SCORE_BACKEND`` environment variable.  A
 ``score_fn`` (:func:`make_engine_score_fn`: kernel C) overrides the backend
 with a dense scorer.
 
+:func:`embed_bag` (sum | mean) puts kernel D under the recsys models'
+embedding bags.
+
 Each function dispatches on the device of its tensors: the CUDA kernel for
 CUDA tensors, its plain twin for CPU tensors (``use_kernel`` overrides:
 False runs the twin on the card too, which is how the kernels are checked).
@@ -27,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import csr_score as _csr
+from repro_torch.kernels import embed_bag as _bag
 from repro_torch.kernels import sinnamon_score as _sinn
 
 Tensor = torch.Tensor
@@ -176,3 +180,23 @@ def exact_scores_all(store, q_dense: Tensor, *,
                          store.indices, store.values, None,
                          use_kernel=use_kernel)
     return out[0] if one else out
+
+
+def embed_bag(table: Tensor, indices: Tensor,
+              weights: Optional[Tensor] = None, *, mode: str = "sum",
+              use_kernel: Optional[bool] = None) -> Tensor:
+    """EmbeddingBag(sum|mean) on kernel D: f32[B, D] from ``table`` [V, D]
+    and ``indices`` int32[B, F] (pad -1).  ``weights`` None means ones;
+    ``mean`` divides the weights by each bag's count of valid slots (at
+    least 1), as the reference folds it in."""
+    B, F = indices.shape
+    if weights is None:
+        weights = torch.ones((B, F), dtype=torch.float32,
+                             device=indices.device)
+    if mode == "mean":
+        counts = (indices >= 0).sum(-1, keepdim=True).clamp_min(1)
+        weights = weights / counts
+    elif mode != "sum":
+        raise ValueError(mode)
+    return _bag.embed_bag(table, indices, weights.contiguous(),
+                          use_kernel=use_kernel)

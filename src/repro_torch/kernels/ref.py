@@ -48,3 +48,14 @@ def csr_score_ref(q_dense: Tensor, indices: Tensor, values: Tensor) -> Tensor:
     safe = torch.where(valid, indices, 0).long()
     return torch.where(valid, q_dense[safe] * values.to(torch.float32),
                        0.0).sum(-1)
+
+
+def embed_bag_ref(table: Tensor, indices: Tensor, weights: Tensor) -> Tensor:
+    """Weighted-sum embedding bags f32[B, D] of ``table`` [V, D] rows at
+    ``indices`` int32[B, F] (pad -1, weight 0 there; mean folded into the
+    weights): one einsum over the gathered rows."""
+    valid = indices >= 0
+    safe = torch.where(valid, indices, 0).long()
+    rows = table[safe].to(torch.float32)                     # [B, F, D]
+    w = torch.where(valid, weights, 0.0)
+    return torch.einsum("bfd,bf->bd", rows, w)

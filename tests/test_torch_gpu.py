@@ -1,7 +1,7 @@
 """Kernel-against-twin checks on the card (marker ``gpu``).
 
 Each CUDA kernel of ``repro_torch`` (A: ``sinnamon_score_topk``, B:
-``csr_score``, C: ``sinnamon_score``) is run at small shapes on CUDA
+``csr_score``, C: ``sinnamon_score``, D: ``embed_bag``) is run at small shapes on CUDA
 tensors and held against its plain-torch twin on the same tensors.  The tests skip
 when no CUDA device is present; the decision is made inside a fixture, so
 every worker collects the same tests.  Run them on the card with
@@ -17,7 +17,8 @@ torch.set_num_threads(2)
 
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
-from repro_torch.kernels import csr_score, sinnamon_score  # noqa: E402
+from repro_torch.kernels import csr_score, embed_bag, ops  # noqa: E402
+from repro_torch.kernels import sinnamon_score  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -210,3 +211,75 @@ def test_index_on_card_matches_cpu(cuda, cell):
                                        use_kernel=False)
     assert torch.equal(ids_k, ids_p)
     torch.testing.assert_close(sc_k, sc_p, rtol=1e-5, atol=1e-5)
+
+
+def _bag_operands(rng, V, D, B, F, dtype, cuda, aligned=True):
+    table = _cells(rng, (V, D), dtype).to(cuda)
+    if not aligned:          # the same rows, one element past an aligned base
+        base = torch.empty(V * D + 1, dtype=dtype, device=cuda)
+        base[1:] = table.reshape(-1)
+        table = base[1:].view(V, D)
+    idx = rng.integers(-1, V, (B, F)).astype(np.int32)
+    idx[rng.random((B, F)) < 0.2] = -1
+    w = rng.normal(0, 1, (B, F)).astype(np.float32)
+    return table, torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda)
+
+
+@pytest.mark.parametrize("cell", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [8, 18, 64, 128])
+@pytest.mark.parametrize("F", [1, 4, 40])
+def test_embed_bag_kernel_bit_equal_to_twin(cuda, cell, D, F):
+    rng = np.random.default_rng(D * 100 + F)
+    table, idx, w = _bag_operands(rng, 3000, D, 5000, F, CELLS[cell], cuda)
+    before = embed_bag.embed_bag.launches
+    got = embed_bag.embed_bag(table, idx, w)
+    assert embed_bag.embed_bag.launches == before + 1
+    want = embed_bag.embed_bag_plain(table, idx, w)
+    torch.cuda.synchronize()
+    assert got.shape == (5000, D) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    mean = ops.embed_bag(table, idx, w, mode="mean")
+    assert torch.equal(mean, ops.embed_bag(table, idx, w, mode="mean",
+                                           use_kernel=False))
+
+
+@pytest.mark.parametrize("cell", ["f32", "bf16"])
+def test_embed_bag_kernel_unaligned_table(cuda, cell):
+    rng = np.random.default_rng(7)
+    table, idx, w = _bag_operands(rng, 500, 64, 700, 6, CELLS[cell], cuda,
+                                  aligned=False)
+    assert table.data_ptr() % 16 != 0
+    got = embed_bag.embed_bag(table, idx, w)
+    want = embed_bag.embed_bag_plain(table, idx, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_embed_bag_rejects_bad_operands(cuda):
+    table = torch.zeros((10, 8), device=cuda)
+    idx = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    w = torch.ones((4, 3), device=cuda)
+    for args in ((table, idx.long(), w),                     # int64 indices
+                 (table.t(), idx, w),                        # not contiguous
+                 (table, idx.cpu(), w),                      # mixed devices
+                 (table, idx, w[:, :2].contiguous())):       # shape mismatch
+        with pytest.raises(ValueError):
+            embed_bag.embed_bag(*args)
+
+
+def test_dlrm_kernel_path_bit_equal_to_twin_path(cuda):
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import loaders
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import recsys
+    cfg = dlrm_rm2.smoke_config()
+    model = recsys.DLRM(cfg, torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    batch = loaders.recsys_batch(0, 0, 256, cfg)
+    reset_launch_counts()
+    got = recsys.score(model, batch, cfg)
+    assert launch_counts()["embed_bag"] == 1
+    want = recsys.score(model, batch, cfg, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

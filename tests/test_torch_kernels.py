@@ -209,3 +209,25 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(_build.KernelBuildFailure):
         _build.load("broken")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_failed_build_of_embed_bag_raises(tmp_path, monkeypatch):
+    """Kernel D's wrapper raises when its build fails; the twin never runs."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import embed_bag as tbag
+
+    def twin(*args):
+        raise AssertionError("the plain twin ran")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: shutil.which("false"))
+    monkeypatch.setattr(tbag, "embed_bag_plain", twin)
+    table = torch.zeros((10, 8))
+    idx = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(_build.KernelBuildFailure, match="nvcc failed for "
+                       "embed_bag"):
+        tbag._launch(table, idx, torch.ones((3, 2)))
+    assert not list((tmp_path / "build").glob("*.so"))

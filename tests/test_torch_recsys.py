@@ -1,0 +1,332 @@
+"""Kernel D and the DLRM serving path of the port against the JAX package.
+
+* ``embed_bag_plain`` against the Pallas ``embed_bag`` in interpret mode;
+  ``ops.embed_bag`` and ``ref.embed_bag_ref`` against JAX's:
+  rtol = atol = 1e-6 (the same products summed in the same order; XLA's
+  CPU backend may contract a multiply-add into an FMA).
+* ``stacked_embedding_bag`` against ``jax.vmap(recsys.embedding_bag)``:
+  bit-equal at hot = 1 (one row plus nothing), rtol = 1e-6 at hot = 4.
+* ``loaders.recsys_batch`` bit-equal; configs and shapes equal.
+* DLRM ``score`` / ``loss`` / ``user_repr`` / ``item_embeddings`` /
+  ``retrieval_scores`` from the same parameters: rtol = atol = 1e-5 (f32
+  matrix products sum in another order); top-10 retrieval ids equal.
+* The model's users served through the port's ``SinnamonIndex`` over the
+  sparsified item catalog: ids equal to the JAX index's.
+
+The CUDA kernel itself is held against its twin on the card
+(tests/test_torch_gpu.py, chip_smoke.py).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from repro.configs import common as jcommon  # noqa: E402
+from repro.configs import dlrm_rm2 as jdlrm  # noqa: E402
+from repro.core.engine import EngineSpec as JSpec  # noqa: E402
+from repro.core.engine import SinnamonIndex as JIndex  # noqa: E402
+from repro.data import loaders as jloaders  # noqa: E402
+from repro.kernels import embed_bag as jbag  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.models import recsys as jrs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch import kernels as tkernels  # noqa: E402
+from repro_torch.configs import common as tcommon  # noqa: E402
+from repro_torch.configs import dlrm_rm2 as tdlrm  # noqa: E402
+from repro_torch.core.engine import EngineSpec as TSpec  # noqa: E402
+from repro_torch.core.engine import SinnamonIndex as TIndex  # noqa: E402
+from repro_torch.data import loaders as tloaders  # noqa: E402
+from repro_torch.kernels import embed_bag as tbag  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import recsys as trs  # noqa: E402
+
+TABLES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _table(rng, V, D, kind):
+    """The same table for both packages: (jax array, torch tensor)."""
+    jt = jnp.asarray(rng.normal(0, 1, (V, D)).astype(np.float32),
+                     TABLES[kind])
+    tt = convert.cells_from_numpy(np.asarray(jt), {
+        "f32": torch.float32, "bf16": torch.bfloat16}[kind])
+    return jt, tt
+
+
+def _bags(rng, V, B, F):
+    idx = rng.integers(-1, V, (B, F)).astype(np.int32)
+    idx[rng.random((B, F)) < 0.2] = -1
+    w = rng.normal(0, 1, (B, F)).astype(np.float32)
+    return idx, w
+
+
+# -- 1. the twin against the Pallas kernel -----------------------------------
+
+@pytest.mark.parametrize("kind", list(TABLES))
+@pytest.mark.parametrize("V,D,B,F", [(50, 16, 8, 5), (200, 32, 4, 9),
+                                     (30, 128, 16, 1), (40, 18, 6, 4)])
+def test_embed_bag_twin_matches_pallas_kernel(rng, kind, V, D, B, F):
+    jt, tt = _table(rng, V, D, kind)
+    idx, w = _bags(rng, V, B, F)
+    wz = np.where(idx >= 0, w, 0.0).astype(np.float32)
+    want = jbag.embed_bag(jt, jnp.asarray(idx), jnp.asarray(wz),
+                          interpret=True)
+    got = tbag.embed_bag_plain(tt, torch.from_numpy(idx),
+                               torch.from_numpy(wz))
+    assert got.dtype == torch.float32 and got.shape == (B, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+# -- 2. ops.embed_bag and the oracle -------------------------------------------
+
+@pytest.mark.parametrize("mode,weighted", [("sum", True), ("mean", True),
+                                           ("sum", False), ("mean", False)])
+def test_ops_embed_bag_matches_reference(rng, mode, weighted):
+    V, D, B, F = 60, 24, 7, 5
+    jt, tt = _table(rng, V, D, "f32")
+    idx, w = _bags(rng, V, B, F)
+    idx[3] = -1                                   # a bag of pads only
+    jw = jnp.asarray(w) if weighted else None
+    tw = torch.from_numpy(w) if weighted else None
+    want = jops.embed_bag(jt, jnp.asarray(idx), jw, mode=mode,
+                          interpret=True)
+    got = tops.embed_bag(tt, torch.from_numpy(idx), tw, mode=mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    assert not got[3].any()
+
+
+def test_embed_bag_mode_and_oracle(rng):
+    jt, tt = _table(rng, 30, 8, "f32")
+    idx, w = _bags(rng, 30, 6, 4)
+    with pytest.raises(ValueError):
+        tops.embed_bag(tt, torch.from_numpy(idx), mode="max")
+    want = jref.embed_bag_ref(jt, jnp.asarray(idx), jnp.asarray(w))
+    got = tref.embed_bag_ref(tt, torch.from_numpy(idx), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    twin = tbag.embed_bag_plain(tt, torch.from_numpy(idx),
+                                torch.from_numpy(w))
+    np.testing.assert_allclose(twin.numpy(), got.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+# -- 3. the model's bags --------------------------------------------------------
+
+@pytest.mark.parametrize("hot", [1, 4])
+def test_stacked_embedding_bag_matches_vmapped_reference(rng, hot):
+    F, V, D, B = 5, 40, 12, 9
+    tables = rng.normal(0, 1, (F, V, D)).astype(np.float32)
+    idx = rng.integers(0, V, (B, F, hot)).astype(np.int32)
+    idx[rng.random((B, F, hot)) < 0.25] = -1
+    want = jax.vmap(jrs.embedding_bag, (0, 1), 1)(jnp.asarray(tables),
+                                                  jnp.asarray(idx))
+    got = trs.stacked_embedding_bag(torch.from_numpy(tables),
+                                    torch.from_numpy(idx))
+    assert got.shape == (B, F, D) and got.dtype == torch.float32
+    if hot == 1:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_matches_reference(rng, mode):
+    table = rng.normal(0, 1, (30, 8)).astype(np.float32)
+    idx = rng.integers(-1, 30, (3, 4, 5)).astype(np.int32)
+    want = jrs.embedding_bag(jnp.asarray(table), jnp.asarray(idx), mode)
+    got = trs.embedding_bag(torch.from_numpy(table), torch.from_numpy(idx),
+                            mode)
+    assert got.shape == (3, 4, 8)
+    # both divide the bag's sum by its count; XLA may sum the rows in
+    # another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_embedding_bag_mean_divides_the_sum(rng):
+    """``mean`` is the bag's sum divided by its valid count (at least 1),
+    as the reference computes it, bit for bit; other modes raise."""
+    table = torch.from_numpy(rng.normal(0, 1, (30, 8)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-1, 30, (6, 5)).astype(np.int32))
+    idx[0] = -1
+    total = trs.embedding_bag(table, idx, "sum")
+    count = (idx >= 0).sum(-1, keepdim=True).clamp_min(1)
+    got = trs.embedding_bag(table, idx, "mean")
+    assert torch.equal(got, total / count)
+    assert torch.equal(got[0], torch.zeros(8))
+    with pytest.raises(ValueError):
+        trs.embedding_bag(table, idx, "max")
+
+
+# -- 4. loaders and configs -------------------------------------------------------
+
+@pytest.mark.parametrize("hot", [1, 4])
+def test_recsys_batch_bit_equal(hot):
+    cfg_t = dataclasses.replace(tdlrm.smoke_config(), multi_hot=hot)
+    cfg_j = dataclasses.replace(jdlrm.smoke_config(), multi_hot=hot)
+    for seed, step in ((0, 0), (3, 7), (11, 123)):
+        got = tloaders.recsys_batch(seed, step, 16, cfg_t, device="cpu")
+        want = jloaders.recsys_batch(seed, step, 16, cfg_j)
+        assert got._fields == want._fields
+        for name, g, w in zip(got._fields, got, want):
+            assert g.device.type == "cpu"
+            assert g.numpy().dtype == w.dtype, name
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+def test_configs_equal_reference():
+    for fn in ("full_config", "smoke_config"):
+        assert dataclasses.asdict(getattr(tdlrm, fn)()) == \
+            dataclasses.asdict(getattr(jdlrm, fn)())
+    assert tcommon.RECSYS_SHAPES == jcommon.RECSYS_SHAPES
+    assert tdlrm.SHAPES == jdlrm.SHAPES
+    assert (tdlrm.ARCH, tdlrm.FAMILY) == (jdlrm.ARCH, jdlrm.FAMILY)
+
+
+def test_triu_order_equals_numpy():
+    for n in (3, 7, 27):
+        iu, ju = torch.triu_indices(n, n, 1)
+        niu, nju = np.triu_indices(n, k=1)
+        np.testing.assert_array_equal(iu.numpy(), niu)
+        np.testing.assert_array_equal(ju.numpy(), nju)
+    model = trs.DLRM(tdlrm.smoke_config(), device="cpu")
+    niu, nju = np.triu_indices(model.cfg.n_sparse + 1, k=1)
+    np.testing.assert_array_equal(model.iu.numpy(), niu)
+    np.testing.assert_array_equal(model.ju.numpy(), nju)
+
+
+# -- 5. the model against the reference -----------------------------------------
+
+def _full_width():
+    """rm2 at full MLP and embedding width, vocab cut to 1,000."""
+    cfg = tdlrm.full_config()
+    return dataclasses.replace(cfg, vocab_per_field=1000, n_items=1000)
+
+
+CONFIGS = {
+    "smoke": (tdlrm.smoke_config(), 16),
+    "multi_hot4": (dataclasses.replace(tdlrm.smoke_config(), multi_hot=4),
+                   16),
+    "full_width": (_full_width(), 8),
+}
+
+
+def _pair(name):
+    """(port cfg, JAX cfg, port model, JAX params, port batch, JAX batch)."""
+    cfg_t, B = CONFIGS[name]
+    cfg_j = jrs.RecsysConfig(**dataclasses.asdict(cfg_t))
+    params = jrs.init_params(jax.random.PRNGKey(2), cfg_j)
+    model = convert.recsys_params_from_numpy(
+        jax.tree.map(np.asarray, params), cfg_t, device="cpu")
+    jb = jax.tree.map(jnp.asarray, jloaders.recsys_batch(0, 5, B, cfg_j))
+    tb = tloaders.recsys_batch(0, 5, B, cfg_t, device="cpu")
+    return cfg_t, cfg_j, model, params, tb, jb
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_dlrm_matches_reference(name):
+    cfg_t, cfg_j, model, params, tb, jb = _pair(name)
+    np.testing.assert_array_equal(model.tables.numpy(),
+                                  np.asarray(params["tables"]))
+    close = dict(rtol=1e-5, atol=1e-5)
+    for fn in ("score", "loss", "user_repr", "retrieval_scores"):
+        got = getattr(trs, fn)(model, tb, cfg_t)
+        want = getattr(jrs, fn)(params, jb, cfg_j)
+        assert tuple(got.shape) == tuple(want.shape), fn
+        assert torch.isfinite(got).all(), fn
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **close,
+                                   err_msg=fn)
+    np.testing.assert_array_equal(trs.item_embeddings(model, cfg_t).numpy(),
+                                  np.asarray(jrs.item_embeddings(params,
+                                                                 cfg_j)))
+    got = torch.topk(trs.retrieval_scores(model, tb, cfg_t), 10).indices
+    want = jax.lax.top_k(jrs.retrieval_scores(params, jb, cfg_j), 10)[1]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_params_law_and_dtype(dtype):
+    """Weights drawn with the reference's law (normal / sqrt(fan_in), zero
+    biases) in the asked dtype; a bf16 model serves through kernel D's
+    twin with a bf16 table."""
+    cfg = dataclasses.replace(tdlrm.smoke_config(), vocab_per_field=4000)
+    gen = torch.Generator().manual_seed(3)
+    model = trs.init_params(gen, cfg, dtype, device="cpu")
+    t = model.tables.to(torch.float32)
+    assert model.tables.dtype == getattr(torch, dtype)
+    assert abs(float(t.std()) * np.sqrt(cfg.embed_dim) - 1) < 0.01
+    assert abs(float(t.mean())) < 0.01
+    for lin in (*model.bot, *model.top):
+        w = lin.weight.to(torch.float32)
+        assert abs(float(w.std()) * np.sqrt(w.shape[1]) - 1) < 0.1
+        assert not lin.bias.any()
+    assert not any(p.requires_grad for p in model.parameters())
+    logits = trs.score(model, tloaders.recsys_batch(0, 1, 8, cfg,
+                                                    device="cpu"), cfg)
+    assert logits.shape == (8,) and torch.isfinite(logits).all()
+
+
+# -- 6. retrieval through the port index -------------------------------------------
+
+def test_retrieval_through_port_index_matches_jax():
+    cfg_t, cfg_j, model, params, tb, jb = _pair("smoke")
+    D, t = cfg_t.embed_dim, 8
+    items = trs.item_embeddings(model, cfg_t)
+    idx, val = trs.sparsify_items(items, t)
+    # the example's numpy construction (examples/recsys_retrieval.py)
+    np_items = np.asarray(jrs.item_embeddings(params, cfg_j))
+    order = np.argsort(-np.abs(np_items), axis=1)[:, :t]
+    np_idx = np.sort(order, axis=1).astype(np.int32)
+    np.testing.assert_array_equal(idx.numpy(), np_idx)
+    np.testing.assert_array_equal(
+        val.numpy(), np.take_along_axis(np_items, np_idx, axis=1))
+
+    cap = ((cfg_t.n_items + 31) // 32) * 32
+    kw = dict(n=D, m=8, capacity=cap, max_nnz=t, h=1, value_dtype="float32")
+    jindex, tindex = JIndex(JSpec(**kw)), TIndex(TSpec(**kw), device="cpu")
+    for lo in range(0, cfg_t.n_items, 256):
+        hi = min(lo + 256, cfg_t.n_items)
+        jindex.insert_many(list(range(lo, hi)), idx[lo:hi].numpy(),
+                           val[lo:hi].numpy())
+        tindex.insert_many(list(range(lo, hi)), idx[lo:hi], val[lo:hi])
+    users = np.array(jrs.user_repr(params, jb, cfg_j))
+    q_idx = np.tile(np.arange(D, dtype=np.int32), (users.shape[0], 1))
+    want, _ = jindex.search_many(q_idx, users, k=10, kprime=200)
+    got, _ = tindex.search_many(q_idx, users, k=10, kprime=200)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    port_users = trs.user_repr(model, tb, cfg_t).numpy()
+    np.testing.assert_allclose(port_users, users, rtol=1e-5, atol=1e-5)
+
+
+# -- 7. dispatch rules -------------------------------------------------------------
+
+def test_dispatch_rules(rng):
+    tkernels.reset_launch_counts()
+    _, tt = _table(rng, 20, 8, "f32")
+    idx, w = _bags(rng, 20, 4, 3)
+    ti, tw = torch.from_numpy(idx), torch.from_numpy(w)
+    with pytest.raises(ValueError):
+        tbag.embed_bag(tt, ti, tw, use_kernel=True)
+    with pytest.raises(ValueError):
+        tops.embed_bag(tt, ti, tw, use_kernel=True)
+    tbag.embed_bag(tt, ti, tw)
+    cfg = tdlrm.smoke_config()
+    model = trs.DLRM(cfg, device="cpu")
+    trs.score(model, tloaders.recsys_batch(0, 0, 4, cfg, device="cpu"), cfg)
+    assert tkernels.launch_counts()["embed_bag"] == 0
+    din = dataclasses.replace(cfg, model="din")
+    for fn in (trs.score, trs.user_repr):
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            fn(model, None, din)
+    with pytest.raises(NotImplementedError):
+        trs.DLRM(din, device="cpu")

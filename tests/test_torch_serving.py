@@ -168,7 +168,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(os.path.abspath(SRC)))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 28
+    assert int(out.stdout.strip()) >= 35
 
 
 def test_launcher_runs_on_cpu(capsys):
