@@ -9,30 +9,63 @@
 // inactive / filtered / pad slots to -inf, and keep the tile's kp best
 // candidates in (score desc, slot asc) order.
 //
-// What bounds it on an H100: bytes.  Each query reads L*C/8 bitmap bytes;
-// the sketch cells are shared by every query of a batch.  The grid puts the
-// query index fastest, so the blocks in flight at one time work on the same
-// slot tile and its sketch cells are read from L2, not from HBM, by all but
-// the first query.  A warp covers 32 consecutive slots, i.e. exactly one
-// bitmap word per coordinate: a zero word skips the whole warp's sketch
-// loads, so the sketch traffic follows the posting lists, not C.
+// What bounds it on an H100.  The byte bound is small (each query reads its
+// coordinates' bitmap words of the tile; the sketch cells are shared by the
+// batch and come from L2, as the grid puts the query index fastest), so the
+// kernel is bound by what a block does per slot, in two phases:
+// * Selection.  kp (800 on the main path) of the tile's 8,192 keys are kept.
+//   Sorting all 8,192 keys took 91 block-wide stages.  Instead an MSB radix
+//   select over the keys' order words finds the kp-th key's word H* (up to
+//   4 passes of 8 bits; 256-bin histograms in shared memory filled by one
+//   warp-aggregated atomic per distinct digit of a warp, so the counts do
+//   not depend on thread order; two histograms alternate, so a pass costs
+//   two barriers; the passes stop once the target's bin is kept whole).
+//   Every key below H* is kept, and the first kp - n_less keys equal to H*
+//   in slot order, found by a block-wide exclusive scan of the tie flags
+//   (thread t owns slots t + j*512, so the scan is j-major).  Ties are the
+//   usual case: every slot no coordinate touches scores exactly +0.0 and
+//   every gated slot -inf.  Only the kp survivors are sorted, bitonically
+//   over the next power of two >= kp: at kp <= 1,024 two keys a thread in
+//   registers, exchanged by shuffles inside a warp, so only the 15 stages
+//   (at 1,024) whose partner lies in another warp touch shared memory.  The
+//   keys stay in registers, where the accumulators were, until compaction.
+// * Scoring.  A warp covers 32 consecutive slots, i.e. exactly one bitmap
+//   word per coordinate, so a zero word predicates off the whole warp's
+//   sketch loads and the sketch traffic follows the posting lists, not C.
+//   Padded coordinates are dropped first.  The tile's words of kChunk
+//   coordinates at a time are staged in shared memory by coalesced
+//   cp.async copies (a warp copies 128 B of one bitmap row), double-
+//   buffered so the next chunk's copies overlap this chunk's sums; a
+//   coordinate then costs one L2 round trip (its cells) instead of two
+//   dependent ones (its word, then its cells).  A thread issues a row's
+//   loads for kAhead = 8 of its 16 slots before their adds, so their
+//   latencies overlap (4, 16, or the loads of several coordinates at once
+//   were slower on the card).
+// * Occupancy.  512 threads of 16 slots, at most 64 registers a thread, so
+//   two blocks share an SM and one block's barrier-bound selection overlaps
+//   the other's scoring.  1,024 threads of 8 slots ran either one block per
+//   SM or, at 32 registers, spilled (PERF.md, PR 15).
+//
+// Why it is bit-equal to the plain twin (repro_torch/kernels/
+// sinnamon_score.py):
+// * Coordinates are added one at a time, in order, with __fmul_rn /
+//   __fadd_rn (and the file is built with -fmad=false).  Skipping a slot
+//   whose bit is 0 is the same as adding +0.0, because a sum that starts at
+//   +0.0 never becomes -0.0.
+// * The order word u is the order-preserving bits of -score; (u, slot)
+//   ascending is the twin's int64 key ascending, i.e. (score desc, slot
+//   asc).  The threshold and the tie scan pick exactly the set of the kp
+//   smallest (u, slot) pairs, and the keys are unique, so the sorted
+//   survivors are the twin's top-kp whatever order they were compacted in.
 //
 // Differences from the TPU kernel, and why:
 // * The kernel reads membership words straight from the bitmap by each
 //   coordinate's bitmap row (`brows`, -1 = padded coordinate) instead of a
 //   pre-gathered qbits[B, L, C/32] operand, which would be L*C/8 bytes per
 //   query materialised in HBM.
-// * Coordinates are added one at a time, in order, with __fmul_rn /
-//   __fadd_rn (and the file is built with -fmad=false), so every score is
-//   bit-identical to the plain twin's sequential sum in
-//   repro_torch/kernels/sinnamon_score.py.  Skipping a slot whose bit is 0
-//   is the same as adding +0.0, because a sum that starts at +0.0 never
-//   becomes -0.0.
-// * The tile is 8192 slots (TPU: 2048, sized for VMEM) and the in-tile
-//   selection is a bitonic sort of 64-bit keys in shared memory (64 KB).
-//   The key is (order-preserving bits of -score) << 32 | slot, the same key
-//   the merge sorts on, so ties come out slot-ascending.
+// * The tile is 8192 slots (TPU: 2048, sized for VMEM).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,28 +74,105 @@
 namespace {
 
 constexpr int kTileC = 8192;
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;       // two blocks per SM at <= 64 registers
+constexpr int kWarps = kThreads / 32;
 constexpr int kSlotsPerThread = kTileC / kThreads;
+constexpr int kPacks = kSlotsPerThread / 4;    // u64 packs of 16-bit flags
+constexpr int kRadixBins = 256;
+constexpr int kTileWords = kTileC / 32;
+constexpr int kChunk = 16;          // coordinates staged per buffer
+constexpr int kAhead = 8;           // sketch loads a thread issues ahead
+constexpr int kRegKeys = 2;         // survivors a thread sorts in registers
+static_assert(kRegKeys == 2, "the in-thread stage pairs keys r and r ^ 1");
+static_assert(3 * kRegKeys * kThreads * 8 <= 2 * kChunk * kTileWords * 4,
+              "the register sort's buffers fit in the staging area");
 
-__device__ __forceinline__ long long make_key(float score, int slot) {
-  const int i = __float_as_int(score);
-  const int sortable = i >= 0 ? i : (i ^ 0x7FFFFFFF);     // ascending in score
-  const uint32_t hi = static_cast<uint32_t>(~sortable);   // descending
-  return static_cast<long long>((static_cast<unsigned long long>(hi) << 32) |
-                                static_cast<uint32_t>(slot));
+typedef unsigned long long u64;
+
+// Order word of a score: ascending u is descending score.  Equal to the
+// twin's order key's high word with its sign bit flipped.
+__device__ __forceinline__ uint32_t order_word(float score) {
+  const uint32_t b = __float_as_uint(score);
+  const uint32_t asc = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ~asc;
 }
 
-__device__ __forceinline__ void split_key(long long key, float* score,
-                                          int* slot) {
-  const int hi = static_cast<int>(static_cast<unsigned long long>(key) >> 32);
-  const int sortable = ~hi;
-  const int i = sortable >= 0 ? sortable : (sortable ^ 0x7FFFFFFF);
-  *score = __int_as_float(i);
-  *slot = static_cast<int>(static_cast<unsigned long long>(key) & 0xFFFFFFFFull);
+__device__ __forceinline__ float order_score(uint32_t u) {
+  const uint32_t asc = ~u;
+  return __uint_as_float((asc & 0x80000000u) ? (asc & 0x7FFFFFFFu) : ~asc);
+}
+
+__host__ __device__ constexpr int next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// Shared-memory layout of one block; the wrapper mirrors it
+// (`_topk_smem_fixed` in sinnamon_score.py).
+struct Layout {
+  size_t keys, scan, hist, misc, coords, total;
+  __host__ __device__ Layout(int L, int h, int kp) {
+    // u64[next_pow2(kp)] survivors (and, for the register sort, its two
+    // exchange buffers after them), aliased by the int[2][kChunk][256]
+    // staged membership words: scoring ends before selection starts
+    const size_t sort = static_cast<size_t>(next_pow2(kp)) * sizeof(u64);
+    const size_t stage = 2 * kChunk * kTileWords * sizeof(int);
+    keys = 0;
+    scan = keys + (sort > stage ? sort : stage);
+    hist = scan + kPacks * kWarps * sizeof(u64);       // u64[4][16]
+    misc = hist + 2 * kRadixBins * sizeof(int);        // int[2][256]
+    coords = misc + 4 * sizeof(int);                   // int[4]
+    total = coords + static_cast<size_t>(L) * (2 + h) * sizeof(int);
+  }
+};
+
+// Block-wide exclusive scan of the kPacks u64 values a thread holds (each a
+// pack of four 16-bit counters); `tot` gets the block totals.
+__device__ __forceinline__ void block_exclusive_scan(u64 (&v)[kPacks],
+                                                     u64 (&tot)[kPacks],
+                                                     u64* s_warp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  u64 incl[kPacks];
+#pragma unroll
+  for (int n = 0; n < kPacks; ++n) {
+    incl[n] = v[n];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const u64 y = __shfl_up_sync(0xFFFFFFFFu, incl[n], o);
+      if (lane >= o) incl[n] += y;
+    }
+    if (lane == 31) s_warp[n * kWarps + warp] = incl[n];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int n = 0; n < kPacks; ++n) {
+      u64 w = lane < kWarps ? s_warp[n * kWarps + lane] : 0ull;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const u64 y = __shfl_up_sync(0xFFFFFFFFu, w, o);
+        if (lane >= o) w += y;
+      }
+      if (lane < kWarps) s_warp[n * kWarps + lane] = w;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < kPacks; ++n) {
+    const u64 before = warp ? s_warp[n * kWarps + warp - 1] : 0ull;
+    tot[n] = s_warp[n * kWarps + kWarps - 1];
+    v[n] = before + incl[n] - v[n];
+  }
+}
+
+__device__ __forceinline__ int field16(const u64 (&v)[kPacks], int j) {
+  return static_cast<int>((v[j >> 2] >> (16 * (j & 3))) & 0xFFFFull);
 }
 
 template <typename Cell>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
                      const int* __restrict__ rows,        // [B, L, h]
                      const int* __restrict__ brows,       // [B, L]
@@ -74,8 +184,12 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
                      float* __restrict__ out_vals,        // [B, T, kp]
                      int* __restrict__ out_slots) {       // [B, T, kp]
   extern __shared__ __align__(16) unsigned char smem[];
-  long long* keys = reinterpret_cast<long long*>(smem);
-  float* s_qv = reinterpret_cast<float*>(keys + kTileC);
+  const Layout lay(L, h, kp);
+  u64* s_keys = reinterpret_cast<u64*>(smem + lay.keys);
+  u64* s_scan = reinterpret_cast<u64*>(smem + lay.scan);
+  int* s_hist = reinterpret_cast<int*>(smem + lay.hist);
+  int* s_misc = reinterpret_cast<int*>(smem + lay.misc);
+  float* s_qv = reinterpret_cast<float*>(smem + lay.coords);
   int* s_brow = reinterpret_cast<int*>(s_qv + L);
   int* s_rows = s_brow + L;
 
@@ -84,80 +198,304 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
 
-  for (int t = tid; t < L; t += kThreads) {
-    s_qv[t] = qv[static_cast<size_t>(b) * L + t];
-    s_brow[t] = brows[static_cast<size_t>(b) * L + t];
+  // The query's coordinates, padded ones (brows < 0) dropped and the order
+  // kept: a padded coordinate adds nothing to any slot.
+  if (tid < 32) {
+    int n = 0;
+    for (int t0 = 0; t0 < L; t0 += 32) {
+      const int t = t0 + lane;
+      const size_t bt = static_cast<size_t>(b) * L + t;
+      const int br = t < L ? brows[bt] : -1;
+      const uint32_t live = __ballot_sync(0xFFFFFFFFu, br >= 0);
+      if (br >= 0) {
+        const int at = n + __popc(live & ((1u << lane) - 1u));
+        s_qv[at] = qv[bt];
+        s_brow[at] = br;
+        for (int o = 0; o < h; ++o) s_rows[at * h + o] = rows[bt * h + o];
+      }
+      n += __popc(live);
+    }
+    if (lane == 0) s_misc[2] = n;   // read below, before the radix select
   }
-  for (int t = tid; t < L * h; t += kThreads) {
-    s_rows[t] = rows[static_cast<size_t>(b) * L * h + t];
-  }
+  for (int i = tid; i < 2 * kRadixBins; i += kThreads) s_hist[i] = 0;
+  if (tid == 0) s_misc[3] = 0;                            // "less" count
   __syncthreads();
+  const int n_coords = s_misc[2];
 
-  const long long base = static_cast<long long>(tile) * kTileC;
+  // -- scoring: coordinates in order, their tile words staged in chunks -----
+  // Chunk k's membership words (kChunk coordinates x 256 words of the tile)
+  // are copied into stage[k & 1] with cp.async while chunk k-1 is summed; a
+  // warp copies 32 consecutive words of one bitmap row.  Coordinates past
+  // n_coords and words past C are stored as 0.
+  const int base = tile * kTileC;              // C < 2^31: slots fit an int
+  const int word0 = tile * kTileWords;
+  int* stage = reinterpret_cast<int*>(smem + lay.keys);
+  const int n_chunks = (n_coords + kChunk - 1) / kChunk;
+  auto stage_chunk = [&](int ck) {
+    int* dst = stage + (ck & 1) * kChunk * kTileWords;
+#pragma unroll
+    for (int k = 0; k < kChunk * kTileWords / kThreads; ++k) {
+      const int i = tid + k * kThreads;
+      const int t = ck * kChunk + i / kTileWords;
+      const int w = word0 + i % kTileWords;
+      if (t < n_coords && w < W) {
+        __pipeline_memcpy_async(dst + i,
+                                bits + static_cast<size_t>(s_brow[t]) * W + w,
+                                sizeof(int));
+      } else {
+        dst[i] = 0;
+      }
+    }
+    __pipeline_commit();
+  };
+
+  const int slot0 = base + tid;                // this thread's slot, j = 0
+  const int lane_bit = 1 << lane;
   float acc[kSlotsPerThread];
 #pragma unroll
   for (int j = 0; j < kSlotsPerThread; ++j) acc[j] = 0.0f;
 
-  for (int t = 0; t < L; ++t) {
-    const int br = s_brow[t];
-    if (br < 0) continue;                                 // padded coordinate
-    const float q = s_qv[t];
-    const bool pos = q > 0.0f;
-    const int* r = s_rows + t * h;
-    const int* wrow = bits + static_cast<size_t>(br) * W;
-#pragma unroll
-    for (int j = 0; j < kSlotsPerThread; ++j) {
-      const long long slot = base + tid + j * kThreads;
-      if (slot >= C) continue;                            // warp-uniform
-      const int w = __ldg(wrow + (slot >> 5));            // one word per warp
-      if (w == 0) continue;                               // warp-uniform
-      if (((w >> lane) & 1) == 0) continue;
-      float x = to_f32(sk[static_cast<size_t>(r[0]) * C + slot]);
-      for (int o = 1; o < h; ++o) {
-        const float y = to_f32(sk[static_cast<size_t>(r[o]) * C + slot]);
-        x = (one_sided && !pos) ? fmaxf(x, y) : fminf(x, y);
-      }
-      if (!one_sided && !pos) x = 0.0f;
-      acc[j] = __fadd_rn(acc[j], __fmul_rn(q, x));
+  if (n_chunks > 0) stage_chunk(0);
+  for (int ck = 0; ck < n_chunks; ++ck) {
+    if (ck + 1 < n_chunks) {
+      stage_chunk(ck + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
     }
+    __syncthreads();
+    // this warp's word of slot j is word (tid / 32) + kWarps * j of the tile
+    const int* words = stage + (ck & 1) * kChunk * kTileWords + (tid >> 5);
+    const int t_end = min(n_coords - ck * kChunk, kChunk);
+    for (int c = 0; c < t_end; ++c) {
+      const int t = ck * kChunk + c;
+      const float q = s_qv[t];
+      const bool pos = q > 0.0f;
+      uint32_t hit = 0;             // this thread's membership bits, by j
+#pragma unroll
+      for (int j = 0; j < kSlotsPerThread; ++j) {
+        const int w = words[c * kTileWords + kWarps * j];
+        hit |= ((w & lane_bit) ? 1u : 0u) << j;
+      }
+      if (!one_sided && !pos) {     // no lower sketch: q * 0 at its members
+#pragma unroll
+        for (int j = 0; j < kSlotsPerThread; ++j) {
+          if (hit & (1u << j)) acc[j] = __fadd_rn(acc[j], __fmul_rn(q, 0.0f));
+        }
+        continue;
+      }
+      // Issue kAhead slots' loads of the row, then add them.  A zero word
+      // predicates off all of its warp's loads.
+      const int* r = s_rows + t * h;
+#pragma unroll
+      for (int j0 = 0; j0 < kSlotsPerThread; j0 += kAhead) {
+        float x[kAhead];
+        const Cell* p = sk + static_cast<size_t>(r[0]) * C + slot0 +
+                        j0 * kThreads;
+#pragma unroll
+        for (int j = 0; j < kAhead; ++j) {
+          x[j] = (hit & (1u << (j0 + j))) ? to_f32(p[j * kThreads]) : 0.0f;
+        }
+        for (int o = 1; o < h; ++o) {
+          p = sk + static_cast<size_t>(r[o]) * C + slot0 + j0 * kThreads;
+#pragma unroll
+          for (int j = 0; j < kAhead; ++j) {
+            if (hit & (1u << (j0 + j))) {
+              const float y = to_f32(p[j * kThreads]);
+              x[j] = pos ? fminf(x[j], y) : fmaxf(x[j], y);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kAhead; ++j) {
+          if (hit & (1u << (j0 + j))) {
+            acc[j0 + j] = __fadd_rn(acc[j0 + j], __fmul_rn(q, x[j]));
+          }
+        }
+      }
+    }
+    __syncthreads();                // stage[ck & 1] is refilled next round
   }
 
+  // -- selection: the kp smallest (u, slot) keys of the tile ---------------
+  uint32_t u[kSlotsPerThread];
 #pragma unroll
   for (int j = 0; j < kSlotsPerThread; ++j) {
-    const long long slot = base + tid + j * kThreads;
+    const int slot = slot0 + j * kThreads;
     const bool keep = slot < C && ok[slot] != 0;
-    keys[tid + j * kThreads] =
-        make_key(keep ? acc[j] : -__int_as_float(0x7f800000),
-                 static_cast<int>(slot));
+    u[j] = order_word(keep ? acc[j] : -__int_as_float(0x7f800000));
   }
+
+  // MSB radix select of the kp-th smallest u: up to 4 passes of 8 bits.
+  // Pass p counts into s_hist[p & 1]; warp 0 reads and re-zeroes it, so a
+  // pass needs two barriers.  When the target's bin holds exactly the keys
+  // still wanted, the whole bin is kept and the passes stop early: the
+  // compaction then compares the resolved bits (u & mask) only.
+  uint32_t prefix = 0, mask = 0;
+  int rank = kp;                    // rank of the target among the candidates
+#pragma unroll 1
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    int* hist = s_hist + (pass & 1) * kRadixBins;
+#pragma unroll
+    for (int j = 0; j < kSlotsPerThread; ++j) {
+      const bool in = (u[j] & mask) == prefix;
+      const uint32_t d = (u[j] >> shift) & 0xFFu;
+      const uint32_t peers = __match_any_sync(0xFFFFFFFFu, in ? d : 0x100u);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
+    }
+    __syncthreads();
+    if (tid < 32) {                 // warp 0: the bin holding the target
+      constexpr int kPerLane = kRadixBins / 32;
+      int c[kPerLane];
+      int sum = 0;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        c[i] = hist[lane * kPerLane + i];
+        hist[lane * kPerLane + i] = 0;          // ready for pass + 2
+        sum += c[i];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      int below = incl - sum;
+      if (below < rank && rank <= incl) {
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          if (below + c[i] >= rank) {
+            s_misc[0] = lane * kPerLane + i;
+            s_misc[1] = rank - below;
+            s_misc[2] = rank - below == c[i];   // the whole bin is kept
+            break;
+          }
+          below += c[i];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= static_cast<uint32_t>(s_misc[0]) << shift;
+    mask |= 0xFFu << shift;
+    rank = s_misc[1];
+    if (s_misc[2]) break;
+  }
+  // H* = prefix on the resolved bits: keys below it are all kept, and the
+  // first `take` keys equal to it in slot order.
+  const int take = rank;
+  const int n_less = kp - take;
+
+  // Ties in slot order: exclusive scan of the per-j tie flags (j-major).
+  u64 ties[kPacks], tot[kPacks];
+#pragma unroll
+  for (int n = 0; n < kPacks; ++n) ties[n] = 0;
+#pragma unroll
+  for (int j = 0; j < kSlotsPerThread; ++j) {
+    ties[j >> 2] |= static_cast<u64>((u[j] & mask) == prefix) << (16 * (j & 3));
+  }
+  block_exclusive_scan(ties, tot, s_scan);
+  int before = 0;
+#pragma unroll
+  for (int j = 0; j < kSlotsPerThread; ++j) {
+    const u64 key = (static_cast<u64>(u[j]) << 32) |
+                    static_cast<uint32_t>(tid + j * kThreads);
+    const uint32_t resolved = u[j] & mask;
+    if (resolved == prefix) {
+      const int pos = before + field16(ties, j);
+      if (pos < take) s_keys[n_less + pos] = key;
+    }
+    before += field16(tot, j);
+    const bool less = resolved < prefix;
+    const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, less);
+    int at = 0;
+    if (lane == 0 && ballot) at = atomicAdd(&s_misc[3], __popc(ballot));
+    at = __shfl_sync(0xFFFFFFFFu, at, 0);
+    if (less) s_keys[at + __popc(ballot & ((1u << lane) - 1u))] = key;
+  }
+  const int n2 = next_pow2(kp);
+  for (int i = kp + tid; i < n2; i += kThreads) s_keys[i] = ~0ull;
   __syncthreads();
 
-  // Bitonic sort, ascending key = (score desc, slot asc).
-  for (int k = 2; k <= kTileC; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < kTileC; i += kThreads) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const long long a = keys[i];
-          const long long c = keys[ixj];
-          const bool ascending = (i & k) == 0;
-          if ((a > c) == ascending) {
-            keys[i] = c;
-            keys[ixj] = a;
+  // Bitonic sort of the n2 survivors, ascending (u, slot).
+  const size_t out_base = (static_cast<size_t>(b) * T + tile) * kp;
+  if (n2 <= kRegKeys * kThreads) {
+    // Keys e = tid + r * kThreads in registers: partners inside a warp are
+    // reached by shuffles, partner r ^ 1 inside the thread, and only the
+    // stages whose partner lies in another warp (15 at n2 = 1,024) go
+    // through two alternating buffers past the survivors, one barrier each.
+    u64 v[kRegKeys];
+#pragma unroll
+    for (int r = 0; r < kRegKeys; ++r) {
+      const int e = tid + r * kThreads;
+      v[r] = e < n2 ? s_keys[e] : ~0ull;
+    }
+    int round = 0;
+    for (int k = 2; k <= n2; k <<= 1) {
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        u64 other[kRegKeys];
+        if (j >= kThreads) {        // j == kThreads: the thread's own pair
+#pragma unroll
+          for (int r = 0; r < kRegKeys; ++r) other[r] = v[r ^ 1];
+        } else if (j >= 32) {
+          u64* buf = s_keys + n2 * (1 + (round++ & 1));
+#pragma unroll
+          for (int r = 0; r < kRegKeys; ++r) {
+            if (tid + r * kThreads < n2) buf[tid + r * kThreads] = v[r];
           }
+          __syncthreads();
+#pragma unroll
+          for (int r = 0; r < kRegKeys; ++r) {
+            const int e = tid + r * kThreads;
+            other[r] = e < n2 ? buf[e ^ j] : ~0ull;
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < kRegKeys; ++r) {
+            other[r] = __shfl_xor_sync(0xFFFFFFFFu, v[r], j);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRegKeys; ++r) {
+          const int e = tid + r * kThreads;
+          const bool keep_min = ((e & j) == 0) == ((e & k) == 0);
+          const u64 lo = v[r] < other[r] ? v[r] : other[r];
+          const u64 hi = v[r] < other[r] ? other[r] : v[r];
+          v[r] = keep_min ? lo : hi;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRegKeys; ++r) {
+      const int e = tid + r * kThreads;
+      if (e < kp) {
+        out_vals[out_base + e] =
+            order_score(static_cast<uint32_t>(v[r] >> 32));
+        out_slots[out_base + e] =
+            static_cast<int>(base + static_cast<uint32_t>(v[r]));
+      }
+    }
+    return;
+  }
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = tid; p < (n2 >> 1); p += kThreads) {
+        const int i = 2 * p - (p & (j - 1));
+        const u64 a = s_keys[i];
+        const u64 c = s_keys[i + j];
+        if ((a > c) == ((i & k) == 0)) {
+          s_keys[i] = c;
+          s_keys[i + j] = a;
         }
       }
       __syncthreads();
     }
   }
-
-  const size_t out_base = (static_cast<size_t>(b) * T + tile) * kp;
   for (int i = tid; i < kp; i += kThreads) {
-    float s;
-    int slot;
-    split_key(keys[i], &s, &slot);
-    out_vals[out_base + i] = s;
-    out_slots[out_base + i] = slot;
+    const u64 key = s_keys[i];
+    out_vals[out_base + i] = order_score(static_cast<uint32_t>(key >> 32));
+    out_slots[out_base + i] =
+        static_cast<int>(base + static_cast<uint32_t>(key));
   }
 }
 
@@ -166,8 +504,8 @@ int launch(const void* qv, const void* rows, const void* brows,
            const void* bits, const void* ok, const void* sk, int B, int L,
            int h, int C, int W, int kp, int one_sided, int T, void* out_vals,
            void* out_slots, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTileC) * sizeof(long long) +
-                      static_cast<size_t>(L) * (2 + h) * sizeof(int);
+  if (kp < 1 || kp > kTileC) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Layout(L, h, kp).total;
   cudaError_t err = cudaFuncSetAttribute(
       sinnamon_topk_kernel<Cell>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -185,6 +523,11 @@ int launch(const void* qv, const void* rows, const void* brows,
 }  // namespace
 
 extern "C" int sinnamon_tile_c() { return kTileC; }
+
+// Shared memory one block takes for (L, h, kp), in bytes.
+extern "C" long long sinnamon_topk_smem(int L, int h, int kp) {
+  return static_cast<long long>(Layout(L, h, kp).total);
+}
 
 // cell_kind: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn.
 // Returns the cudaError_t of the launch (0 = success).

@@ -39,6 +39,9 @@ Tensor = torch.Tensor
 
 #: Slots per block of kernel A (``kTileC`` in its source).
 TILE_C = 8192
+#: Kernel A's threads per block, radix-select histogram bins, and
+#: coordinates per staged chunk of membership words (``kChunk``).
+_THREADS, _RADIX_BINS, _CHUNK = 512, 256, 16
 
 _CELL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _TWO32 = 1 << 32
@@ -164,6 +167,8 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.sinnamon_tile_c.argtypes = []
         lib.sinnamon_tile_c.restype = ctypes.c_int
+        lib.sinnamon_topk_smem.argtypes = [ctypes.c_int] * 3
+        lib.sinnamon_topk_smem.restype = ctypes.c_longlong
         if lib.sinnamon_tile_c() != TILE_C:
             raise _build.KernelBuildFailure(
                 f"kernel tile {lib.sinnamon_tile_c()} != TILE_C {TILE_C}")
@@ -216,18 +221,34 @@ def _check_scoring(qv, rows, brows, bits, skmat, smem_fixed: int):
     return B, L, h, C
 
 
+def _topk_smem_fixed(kp: int) -> int:
+    """Kernel A's shared memory apart from the per-coordinate arrays
+    (``Layout`` in its source): the survivors' sort buffer, u64[next power
+    of two >= kp], which the two staged chunks of membership words,
+    int32[2][_CHUNK][TILE_C / 32], alias; the tie scan's warp totals, one
+    u64 per warp for each four slots a thread; two radix histograms; four
+    ints."""
+    n2 = 1 << max(kp - 1, 0).bit_length()
+    stage = 2 * _CHUNK * (TILE_C // 32) * 4
+    scan = (TILE_C // _THREADS // 4) * (_THREADS // 32) * 8
+    return max(n2 * 8, stage) + scan + 2 * _RADIX_BINS * 4 + 16
+
+
 def _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided):
-    if kp > TILE_C:
-        raise ValueError(f"kp={kp} cannot exceed TILE_C={TILE_C}")
+    if not 0 <= kp <= TILE_C:
+        raise ValueError(f"kp={kp} must lie in [0, TILE_C={TILE_C}]")
     dev = qv.device
-    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat, TILE_C * 8)
+    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat,
+                                _topk_smem_fixed(kp))
     _check(ok, "ok", torch.bool, 1, dev)
     if ok.shape != (C,):
         raise ValueError(f"ok {tuple(ok.shape)} != ({C},)")
+    if C > 2**31 - TILE_C:
+        raise ValueError(f"C={C} slots exceed the kernel's int32 slot ids")
     T = -(-C // TILE_C)
     vals = torch.empty((B, T, kp), dtype=torch.float32, device=dev)
     slots = torch.empty((B, T, kp), dtype=torch.int32, device=dev)
-    if B == 0:
+    if B == 0 or kp == 0:
         return vals, slots
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().sinnamon_topk_launch(

@@ -42,16 +42,31 @@ def _cells(rng, shape, dtype, shift=0.0):
     return x.to(dtype)
 
 
-def _fused_operands(rng, B, L, h, m, C, nrows, dtype, one_sided):
+def _sparse_bits(rng, nrows, C, density):
+    """int32 bitmap words with each bit set with probability ``density``
+    (bit i of word w is slot 32 w + i)."""
+    on = rng.random((nrows, C // 32, 32)) < density
+    return np.packbits(on, axis=-1, bitorder="little").view("<u4")[..., 0]
+
+
+def _fused_operands(rng, B, L, h, m, C, nrows, dtype, one_sided,
+                    density=0.5, gated_tile=None):
     qv = rng.normal(0, 1, (B, L)).astype(np.float32)
-    qv[:, -1] = 0.0
+    if L:
+        qv[:, -1] = 0.0
     R = 2 * m if one_sided else m
     rows = rng.integers(0, m, (B, L, h)).astype(np.int32)
     if one_sided:
         rows = np.where((qv > 0)[..., None], rows, rows + m).astype(np.int32)
     brows = rng.integers(-1, nrows, (B, L)).astype(np.int32)
-    bits = rng.integers(-2**31, 2**31, (nrows, C // 32), dtype=np.int64)
+    if density == 0.5:
+        bits = rng.integers(-2**31, 2**31, (nrows, C // 32), dtype=np.int64)
+    else:
+        bits = _sparse_bits(rng, nrows, C, density)
     ok = rng.random(C) < 0.8
+    if gated_tile is not None:         # every slot of this tile gated
+        tile = sinnamon_score.TILE_C
+        ok[gated_tile * tile:(gated_tile + 1) * tile] = False
     return (torch.from_numpy(qv), torch.from_numpy(rows),
             torch.from_numpy(brows),
             torch.from_numpy(bits.astype(np.int32)), torch.from_numpy(ok),
@@ -59,17 +74,28 @@ def _fused_operands(rng, B, L, h, m, C, nrows, dtype, one_sided):
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
-@pytest.mark.parametrize("B,L,h,m,C,kprime,one_sided", [
-    (2, 5, 2, 8, 384, 40, True),
-    (3, 7, 1, 16, 19_968, 900, True),
-    (2, 9, 3, 8, 16_384, 16_384, True),
-    (4, 6, 2, 8, 8_224, 300, False),
+@pytest.mark.parametrize("B,L,h,m,C,kprime,one_sided,density,gated_tile", [
+    (2, 5, 2, 8, 384, 40, True, 0.5, None),
+    (3, 7, 1, 16, 19_968, 900, True, 0.5, None),
+    (2, 9, 3, 8, 16_384, 16_384, True, 0.5, None),
+    (4, 6, 2, 8, 8_224, 300, False, 0.5, None),
+    # 1 bit in 64: most slots score exactly +0.0, so the kp-th key of a
+    # tile lies inside that tie and the tie scan decides the survivors
+    (3, 20, 1, 16, 16_384, 800, True, 1 / 64, None),
+    (2, 8, 1, 8, 24_576, 800, True, 1 / 64, 1),       # a tile all gated
+    (2, 6, 1, 8, 16_384, 1, True, 1 / 64, None),      # kp = 1
+    (2, 6, 2, 8, 17_408, 1_500, True, 1 / 64, None),  # partial tile < kp
+    (2, 4, 1, 8, 16_384, 16_384, True, 1 / 64, None),  # kp = TILE_C
+    (2, 0, 1, 8, 8_192, 800, True, 0.5, None),        # L = 0: all ties
+    (2, 150, 1, 8, 16_384, 800, True, 1 / 16, None),  # L across chunks
+    (2, 150, 2, 8, 9_216, 800, False, 1 / 64, None),
 ])
 def test_sinnamon_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C, kprime,
-                                           one_sided):
+                                           one_sided, density, gated_tile):
     rng = np.random.default_rng(B * 1000 + C)
     ops = [t.to(cuda) for t in _fused_operands(rng, B, L, h, m, C, 40,
-                                               CELLS[cell], one_sided)]
+                                               CELLS[cell], one_sided,
+                                               density, gated_tile)]
     kp = min(kprime, sinnamon_score.TILE_C)
     before = sinnamon_score.sinnamon_score_topk.launches
     kv, ks = sinnamon_score.sinnamon_score_topk(*ops, kp=kp,
@@ -164,6 +190,16 @@ def test_csr_kernel_matches_twin(cuda, vdt, B, K, C, P, n):
         want = csr_score.csr_score_plain(q, idx, val, s)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("L,h,kp", [(0, 1, 1), (64, 1, 800), (150, 3, 1_500),
+                                    (7, 2, 8_192)])
+def test_sinnamon_topk_smem_matches_kernel_layout(cuda, L, h, kp):
+    """The wrapper's shared-memory check sizes the block as the kernel's
+    own layout does."""
+    lib = sinnamon_score._lib()
+    want = sinnamon_score._topk_smem_fixed(kp) + L * (2 + h) * 4
+    assert lib.sinnamon_topk_smem(L, h, kp) == want
 
 
 def test_kernel_rejects_bad_operands(cuda):

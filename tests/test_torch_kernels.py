@@ -32,11 +32,15 @@ SHAPES = [(2, 5, 2, 8, 384, 128, 40), (3, 7, 1, 16, 512, 128, 200),
           (1, 4, 3, 8, 256, 256, 10), (5, 6, 2, 8, 640, 128, 300)]
 
 
-def _operands(rng, B, L, h, m, C, nrows=12):
+def _operands(rng, B, L, h, m, C, nrows=12, density=None):
     qv = rng.normal(0, 1, (B, L)).astype(np.float32)
     qv[:, -1] = 0.0
     rows = rng.integers(0, m, (B, L, h)).astype(np.int32)
-    bits = rng.integers(0, 2**32, (nrows, C // 32), dtype=np.uint32)
+    if density is None:
+        bits = rng.integers(0, 2**32, (nrows, C // 32), dtype=np.uint32)
+    else:                  # each bit set with probability ``density``
+        on = rng.random((nrows, C // 32, 32)) < density
+        bits = np.packbits(on, axis=-1, bitorder="little").view("<u4")[..., 0]
     brows = rng.integers(-1, nrows, (B, L)).astype(np.int32)
     qbits = np.where((brows >= 0)[..., None], bits[np.maximum(brows, 0)], 0)
     u = rng.normal(0, 1, (m, C)).astype(np.float32)
@@ -83,6 +87,73 @@ def test_fused_twin_matches_pallas_kernel(rng, B, L, h, m, C, tile, kprime,
         kprime)
     np.testing.assert_array_equal(ps.numpy(), np.asarray(rs))
     np.testing.assert_allclose(pv.numpy(), np.asarray(rv), rtol=1e-6)
+
+
+@pytest.mark.parametrize("B,L,h,m,C,tile,kprime,density,gated_tile", [
+    (2, 5, 1, 8, 512, 128, 40, 1 / 64, None),
+    (3, 7, 2, 8, 512, 128, 200, 1 / 64, 1),     # kp = tile, one tile gated
+    (2, 6, 1, 8, 384, 128, 1, 1 / 2048, None),  # kp = 1
+    (2, 9, 1, 16, 512, 256, 300, 1 / 256, 0),
+])
+@pytest.mark.parametrize("one_sided", [True, False])
+def test_fused_twin_tie_order_matches_pallas_kernel(rng, B, L, h, m, C, tile,
+                                                    kprime, density,
+                                                    gated_tile, one_sided):
+    """A sparse bitmap makes most slots score exactly +0.0 (and gated slots
+    -inf), so each tile's kp-th key lies inside a tie: the twin keeps the
+    Pallas kernel's (score desc, slot asc) order through the ties."""
+    qv, rows, bits, brows, qbits, u, ll, ok = _operands(
+        rng, B, L, h, m, C, density=density)
+    if gated_tile is not None:
+        ok[gated_tile * tile:(gated_tile + 1) * tile] = False
+    gate = np.where(ok, 0.0, -np.inf).astype(np.float32)[None]
+    pos = qv > 0
+    if one_sided:
+        skm = np.concatenate([u, ll], axis=0)
+        prow = np.where(pos[..., None], rows, rows + m).astype(np.int32)
+    else:
+        skm, prow = u, rows
+    kp = min(kprime, tile)
+    jv, js = jsinn.sinnamon_score_topk(
+        jnp.asarray(qv), jnp.asarray(pos), jnp.asarray(prow),
+        jnp.asarray(qbits), jnp.asarray(gate), jnp.asarray(skm), kp=kp,
+        tile_c=tile, one_sided=one_sided, interpret=True)
+    tv, ts = tsinn.sinnamon_score_topk_plain(
+        torch.from_numpy(qv), torch.from_numpy(prow), torch.from_numpy(brows),
+        torch.from_numpy(bits.view(np.int32)), torch.from_numpy(ok),
+        torch.from_numpy(skm), kp=kp, tile_c=tile, one_sided=one_sided)
+    last = tv[..., -1]                  # each tile's kp-th value
+    assert bool(((last == 0) | torch.isinf(last)).any()), \
+        "the case must cut a tile inside a tie"
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    jv, js = jsinn.merge_tile_topk(jv, js, kprime)
+    tv, ts = tsinn.merge_tile_topk(tv, ts, kprime)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_topk_wrapper_sizes_shared_memory():
+    """Kernel A's wrapper sizes the block as the kernel lays it out and
+    raises, before any launch, for kp, L or h the kernel cannot take."""
+    small = 4 * 16 * 8 + 2 * 256 * 4 + 16   # scan packs, histograms, ints
+    stage = 2 * 16 * 256 * 4          # two chunks of staged words
+    assert tsinn._topk_smem_fixed(1) == stage + small
+    assert tsinn._topk_smem_fixed(800) == stage + small
+    assert tsinn._topk_smem_fixed(tsinn.TILE_C) == tsinn.TILE_C * 8 + small
+
+    def operands(L, h):
+        return (torch.zeros((1, L)), torch.zeros((1, L, h), dtype=torch.int32),
+                torch.zeros((1, L), dtype=torch.int32),
+                torch.zeros((1, 1), dtype=torch.int32),
+                torch.ones(32, dtype=torch.bool), torch.zeros((1, 32)))
+
+    with pytest.raises(ValueError, match="shared memory"):
+        tsinn._launch(*operands(20_000, 1), 800, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tsinn._launch(*operands(1_000, 60), 800, True)
+    with pytest.raises(ValueError, match="TILE_C"):
+        tsinn._launch(*operands(4, 1), tsinn.TILE_C + 1, True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
