@@ -10,7 +10,8 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
 1. device   — the card's name, count and power limit;
 2. build    — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
               (one nvcc per source, started together), with ptxas's
-              registers and shared memory;
+              registers and shared memory, and kernel C's registers and
+              spills per instance (cell type x tile words);
 3. kernels  — each kernel against its plain twin on the card, at the main
               paths' shapes: kernel A + merge bit-equal to the twin + merge
               and kernel C bit-equal to its twin (bf16 and f8 cells, signed
@@ -34,7 +35,9 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               yardstick for the LinScan (one torch.sparse CSR mat-vec),
               request latency p50/p99 (the wall time of each ``query_many``
               batch: every request of a batch waits for all of it) and
-              throughput in queries/s of both paths;
+              throughput in queries/s of both paths; the dense request at
+              B=16 split into operand prep, kernel C, the gate, topk_desc
+              over 16 x C keys and B's rerank;
 4c. eval    — run after 5, once the served index is freed: the paper's
               evaluation path (``repro_torch.eval``) on the same 1,114,112
               documents and 256 queries: the recall frontier over three
@@ -82,6 +85,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -258,10 +262,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = _build.build()
     for b in built.values():
+        if b.name == "sinnamon_dense":      # one line per instance below
+            continue
         for line in b.ptxas_log.splitlines():
             if any(w in line for w in ("Function properties", "registers",
                                        "spill", "smem")):
                 log(f"[2 build] {b.name}: {line.strip()}")
+    dense_ptxas = dense_instances(built["sinnamon_dense"].ptxas_log)
+    log("[2 build] sinnamon_dense instances (registers, spill stores / "
+        "loads in bytes): " + "; ".join(
+            f"{k} {r} regs {st}/{ld}" for k, (r, st, ld)
+            in dense_ptxas.items()))
     log(f"[2 build] ok: {', '.join(built)} for sm_90a in "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -492,7 +503,7 @@ def main(argv=None) -> int:
 
     # -- 5. times ---------------------------------------------------------------
     kernel_rows = times(index, card, q_idx, q_val, answers, counts,
-                        dense_counts, lat, t_start)
+                        dense_counts, lat, t_start, dense_ptxas)
 
     # -- 4c. the evaluation path (after the served index is freed) -------------
     del index, server, staged, dense, res_f, cv, cs, rv, rs
@@ -523,12 +534,13 @@ def main(argv=None) -> int:
 
 
 def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
-          t_start):
+          t_start, dense_ptxas):
     """Phase 5: CUDA-event times of every kernel and its twin at the main
     paths' shapes, their bounds, the serving latencies; returns the kernels
     JSON rows."""
     import torch
 
+    from repro_torch.core import engine as eng
     from repro_torch.kernels import csr_score, ops, sinnamon_score
     from repro_torch.storage import vecstore
 
@@ -628,6 +640,39 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
     n_coords = int((c16[2] >= 0).sum())
     c_bound_pq = (n_coords * (H * C * st.sketch.element_size() + C // 8)
                   + 16 * C * 4) / HBM_BYTES_PER_S * 1e3
+    words, c_smem = sinnamon_score.dense_tile(st.sketch.shape[0],
+                                              st.sketch.element_size(), H)
+    c_instance = (f"{CELL_NAMES[str(st.sketch.dtype).split('.')[-1]]}"
+                  f"x{words}")
+    # share of the (coordinate, 32-slot word) pairs whose word is non-zero
+    live16 = c16[2][c16[2] >= 0].long()
+    nz_share = float((st.bits[live16] != 0).float().mean())
+
+    # the dense request at B=16, split on the card: operand prep, kernel C,
+    # the gate and topk_desc over 16 x C keys (engine.topk_candidates), and
+    # B's rerank (densify, csr_score over k' rows, top-k, ids)
+    prep_ms = cuda_ms(lambda: ops.prepare_fused_operands(st, spec, qi16,
+                                                         qv16), reps=10)
+    s16 = sinnamon_score.sinnamon_score(*c16_args, one_sided=one_sided)
+    gate_ms = cuda_ms(lambda: torch.where(st.active[None, :], s16,
+                                          -torch.inf), reps=10)
+    gated16 = torch.where(st.active[None, :], s16, -torch.inf)
+    topk_ms = cuda_ms(lambda: sinnamon_score.topk_desc(gated16, KPRIME),
+                      reps=10)
+    cv16, cs16 = sinnamon_score.topk_desc(gated16, KPRIME)
+    rerank_ms = cuda_ms(lambda: eng.rerank_topk(st, cv16, cs16, qi16, qv16,
+                                                K), reps=10)
+    qd16 = vecstore.densify_query(N, qi16, qv16)
+    cs16 = cs16.contiguous()
+    b16_ms = cuda_ms(lambda: csr_score.csr_score(
+        qd16, st.store.indices, st.store.values, cs16), reps=10)
+    del s16, gated16
+    dense_p50 = lat["dense B=16"]["p50"]
+    split = {"p50_ms": dense_p50, "prep_ms": prep_ms, "kernel_c_ms": c_ms,
+             "gate_ms": gate_ms, "topk_desc_ms": topk_ms,
+             "rerank_ms": rerank_ms, "rerank_csr_score_ms": b16_ms}
+    split["rest_ms"] = dense_p50 - (prep_ms + c_ms + gate_ms + topk_ms
+                                    + rerank_ms)
 
     log(f"[5 times] on {card}:")
     log(f"[5 times]   sinnamon_score_topk B=256 L={qv_op.shape[1]}: "
@@ -645,7 +690,16 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
     log(f"[5 times]   sinnamon_score (dense) B=16 L={c16[0].shape[1]}: "
         f"{c_ms:.3f} ms (twin {c_plain_ms:.3f} ms, bound {c_bound:.4f} ms, "
         f"per-query form {c_bound_pq:.3f} ms); B=256 {c256_ms:.3f} ms "
-        f"(bound {c256_bound:.4f} ms)")
+        f"(bound {c256_bound:.4f} ms); instance {c_instance} "
+        f"({32 * words}-slot tiles, {c_smem} B of shared memory a block, "
+        f"{dense_ptxas[c_instance][0]} registers, spills "
+        f"{dense_ptxas[c_instance][1]}/{dense_ptxas[c_instance][2]} B); "
+        f"non-zero share of the B=16 batch's bitmap words {nz_share:.4f}")
+    log(f"[5 times]   dense request B=16: p50 {dense_p50:.4f} ms = operand "
+        f"prep {prep_ms:.4f} + kernel C {c_ms:.4f} + gate {gate_ms:.4f} + "
+        f"topk_desc over 16 x {C} keys {topk_ms:.4f} + rerank "
+        f"{rerank_ms:.4f} (csr_score {b16_ms:.4f}) + the rest (host, "
+        f"copies) {split['rest_ms']:.4f} ms")
     for key, p in lat.items():
         log(f"[5 times]   serving {key}: request latency (batch wall "
             f"time) p50 {p['p50']:.4f} ms, p99 {p['p99']:.4f} ms over "
@@ -688,7 +742,12 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
          >= c_ops / F32_OPS_PER_S else "operations",
          "library_ms": None, "shape": f"B=16 L={c16[0].shape[1]} C={C}",
          "bound_ms_per_query": c_bound_pq, "ms_b256": c256_ms,
-         "bound_ms_b256": c256_bound},
+         "bound_ms_b256": c256_bound, "tile_slots": 32 * words,
+         "ptxas": {k: {"registers": r, "spill_stores": st_b,
+                       "spill_loads": ld_b}
+                   for k, (r, st_b, ld_b) in dense_ptxas.items()},
+         "nonzero_word_share_b16": nz_share,
+         "dense_request_b16": split},
     ]
     return kernel_rows
 
@@ -1126,6 +1185,35 @@ def recsys_retrieval(model, cfg, host_batch, on_card, seed, dev) -> dict:
             "recall_at_10_vs_dense": r_dense,
             "recall_at_10_vs_sparse_exact": r_sparse,
             "build_s": t_build}
+
+
+CELL_NAMES = {"float32": "f32", "bfloat16": "bf16", "float8_e4m3fn": "f8"}
+
+
+def dense_instances(ptxas_log: str) -> dict:
+    """Kernel C's instances in an ``nvcc -Xptxas -v`` log: {"bf16x8":
+    (registers, spill store bytes, spill load bytes), ...} (cell type x
+    32-slot words per tile), plus ``mark_rows``."""
+    cells = {"f": "f32", "4Bf16": "bf16", "6F8E4M3": "f8"}
+    out, name, spill = {}, None, (0, 0)
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"sinnamon_dense_kernelI(\w+?)Li(\d+)E", name)
+            key = (f"{cells[k.group(1)]}x{k.group(2)}" if k
+                   else "mark_rows" if "mark_rows" in name else name)
+            out[key] = (int(m.group(1)), *spill)
+            name = None
+    return out
 
 
 def check_path_launches(counts: dict, path: str, launched, not_launched):

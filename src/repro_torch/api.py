@@ -33,7 +33,8 @@ class IndexConfig:
     count), ``sketch_kind`` (``full | lite``), ``cell_dtype`` (sketch cells
     ``f32 | bf16 | f8``), ``store_dtype`` (raw rows), ``positive_only``,
     ``index_buckets``, ``seed``.  ``backend`` pins the scoring backend
-    (``reference | grouped | fused``; None -> ``fused``).
+    (``reference | grouped | fused``, ``pallas`` an alias of ``fused``;
+    None -> ``fused``).
     """
 
     n: int

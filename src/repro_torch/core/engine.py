@@ -437,9 +437,9 @@ def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
                     use_kernel: Optional[bool] = None):
     """Batched candidate generation -> (upper_bounds f32[B, kprime],
     slots int32[B, kprime]) in (upper bound desc, slot asc) order, the same
-    order for every backend (``reference | grouped | fused``; None -> see
-    ``ops.resolve_backend``).  ``use_kernel`` is passed to the fused path's
-    kernel.
+    order for every backend (``reference | grouped | fused``, or the alias
+    ``pallas``; None -> see ``ops.resolve_backend``).  ``use_kernel`` is
+    passed to the fused path's kernel.
 
     ``score_fn`` overrides the backend with a dense scorer.  It is
     batch-native, ``score_fn(state, spec, q_idx, q_val, budget) ->

@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.ops``.  Every query hot path routes
 candidate generation through one selector:
 
 * ``fused``     — kernel A (``sinnamon_score_topk``) + the tile merge; never
-  materialises the [B, C] score matrix.  The default.
+  materialises the [B, C] score matrix.  The default.  ``pallas``, the
+  reference package's name for its fused backend, is accepted as an alias,
+  so a config or ``REPRO_SCORE_BACKEND`` written for ``repro`` works here.
 * ``grouped``   — ``engine.score_batch(grouped=True)`` + a dense top-k.
 * ``reference`` — the coordinate-at-a-time ``engine.score_batch`` + a dense
   top-k; the correctness oracle.
@@ -36,18 +38,22 @@ from repro_torch.kernels import sinnamon_score as _sinn
 Tensor = torch.Tensor
 
 SCORE_BACKENDS = ("reference", "grouped", "fused")
+#: Other accepted names -> canonical name (``pallas`` is ``repro``'s).
+BACKEND_ALIASES = {"pallas": "fused"}
 SCORE_BACKEND_ENV = "REPRO_SCORE_BACKEND"
 DEFAULT_SCORE_BACKEND = "fused"
 
 
 def resolve_backend(backend: Optional[str] = None) -> str:
-    """Validate a backend choice; None -> ``$REPRO_SCORE_BACKEND``, else
-    ``fused``."""
+    """Validate a backend choice and return its canonical name (one of
+    ``SCORE_BACKENDS``; ``pallas`` -> ``fused``); None ->
+    ``$REPRO_SCORE_BACKEND``, else ``fused``."""
     if backend is None:
         backend = os.environ.get(SCORE_BACKEND_ENV, DEFAULT_SCORE_BACKEND)
+    backend = BACKEND_ALIASES.get(backend, backend)
     if backend not in SCORE_BACKENDS:
-        raise ValueError(f"unknown score backend {backend!r}; "
-                         f"expected one of {SCORE_BACKENDS}")
+        raise ValueError(f"unknown score backend {backend!r}; expected one "
+                         f"of {SCORE_BACKENDS + tuple(BACKEND_ALIASES)}")
     return backend
 
 

@@ -8,7 +8,10 @@
   XLA in the reference.
 * Kernel C, :func:`sinnamon_score`: dense upper bounds f32[B, C] (the
   ``score_fn`` hook's scorer).  Replaces the Pallas TPU kernel
-  ``sinnamon_score``; CUDA source ``csrc/sinnamon_dense.cu``.
+  ``sinnamon_score``; CUDA source ``csrc/sinnamon_dense.cu``.  A block
+  stages a tile's sketch cells in shared memory once for the whole batch;
+  :func:`dense_tile` picks the tile from the sketch's rows and cell width
+  and states the limit.
 
 Each source's header says what bounds the kernel on an H100 and how the
 design meets that.  Each wrapper launches its kernel for CUDA tensors and
@@ -45,7 +48,12 @@ _THREADS, _RADIX_BINS, _CHUNK = 512, 256, 16
 
 _CELL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _TWO32 = 1 << 32
-_MAX_GRID_Y = 65_535
+#: Kernel C's tile widths in 32-slot words, widest first, its warps per
+#: block, and the shared memory each of two blocks on one SM may take
+#: (228 KB per SM, 1 KB of it reserved per block).
+_DENSE_WORDS = (8, 4, 2, 1)
+_DENSE_WARPS = 16
+_DENSE_SMEM_TWO_PER_SM = 233_472 // 2 - 1_024
 
 
 # -- the (score desc, slot asc) order key -------------------------------------
@@ -179,11 +187,11 @@ def _dense_lib():
     lib = _build.load("sinnamon_dense")
     fn = lib.sinnamon_dense_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
-        lib.sinnamon_dense_run.argtypes = []
-        lib.sinnamon_dense_run.restype = ctypes.c_int
+        lib.sinnamon_dense_smem.argtypes = [ctypes.c_int] * 4
+        lib.sinnamon_dense_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -195,9 +203,8 @@ def _check(t: Tensor, name: str, dtype, ndim: int, device) -> None:
                          f"{t.device} (contiguous={t.is_contiguous()})")
 
 
-def _check_scoring(qv, rows, brows, bits, skmat, smem_fixed: int):
-    """Validate the operands kernels A and C share -> (B, L, h, C); raises
-    when a block would need more than the card's shared memory."""
+def _check_scoring(qv, rows, brows, bits, skmat):
+    """Validate the operands kernels A and C share -> (B, L, h, C)."""
     dev = qv.device
     B, L = qv.shape
     h = rows.shape[-1]
@@ -215,9 +222,6 @@ def _check_scoring(qv, rows, brows, bits, skmat, smem_fixed: int):
                          f"qv {tuple(qv.shape)} rows {tuple(rows.shape)} "
                          f"brows {tuple(brows.shape)} bits "
                          f"{tuple(bits.shape)} skmat {tuple(skmat.shape)}")
-    smem = smem_fixed + L * (2 + h) * 4
-    if smem > _build.SMEM_PER_BLOCK:
-        raise ValueError(f"L={L}, h={h} need {smem} B of shared memory")
     return B, L, h, C
 
 
@@ -238,8 +242,10 @@ def _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided):
     if not 0 <= kp <= TILE_C:
         raise ValueError(f"kp={kp} must lie in [0, TILE_C={TILE_C}]")
     dev = qv.device
-    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat,
-                                _topk_smem_fixed(kp))
+    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat)
+    smem = _topk_smem_fixed(kp) + L * (2 + h) * 4
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"L={L}, h={h} need {smem} B of shared memory")
     _check(ok, "ok", torch.bool, 1, dev)
     if ok.shape != (C,):
         raise ValueError(f"ok {tuple(ok.shape)} != ({C},)")
@@ -261,20 +267,58 @@ def _launch(qv, rows, brows, bits, ok, skmat, kp, one_sided):
     return vals, slots
 
 
+def _dense_smem(R: int, cell_bytes: int, words: int, h: int) -> int:
+    """Kernel C's shared memory per block (``Layout`` in its source): the
+    tile's cells [R, 32 * words], then, for each of its 16 warps, two staged
+    chunks of 32 coordinates: words int32[32, words], q f32[32], cell
+    offsets int32[32, h]."""
+    return (R * 32 * words * cell_bytes
+            + _DENSE_WARPS * 2 * 32 * (words + 1 + h) * 4)
+
+
+def dense_tile(R: int, cell_bytes: int, h: int = 1):
+    """Kernel C's tile for a sketch of R rows: (words, smem bytes); a block
+    scores 32 * words slots.
+
+    The widest tile of ``_DENSE_WORDS`` whose block fits twice on an SM, else
+    32 slots at one block per SM.  Raises ``ValueError`` when R rows of 32
+    slots do not fit in one block's shared memory (232,448 B): at h=1 that
+    is R > 1,720 rows of f32 cells (3,440 bf16, 6,880 f8).  The largest
+    sketch the tuner builds, m=96 one-sided (R=192), takes 64-slot tiles in
+    f32.
+    """
+    for words in _DENSE_WORDS:
+        smem = _dense_smem(R, cell_bytes, words, h)
+        if smem <= _DENSE_SMEM_TWO_PER_SM:
+            return words, smem
+    if smem <= _build.SMEM_PER_BLOCK:
+        return words, smem
+    raise ValueError(f"kernel C: {R} sketch rows of {cell_bytes}-byte cells "
+                     f"(h={h}) need {smem} B of shared memory even in "
+                     f"{32 * words}-slot tiles; a block has "
+                     f"{_build.SMEM_PER_BLOCK} B")
+
+
 def _launch_dense(qv, rows, brows, bits, skmat, one_sided):
     dev = qv.device
-    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat, 0)
+    B, L, h, C = _check_scoring(qv, rows, brows, bits, skmat)
+    R = skmat.shape[0]
+    words, _ = dense_tile(R, skmat.element_size(), h)
+    if skmat.data_ptr() % 16:
+        raise ValueError("skmat must start on a 16-byte boundary (the "
+                         "kernel copies its rows in 16-byte pieces)")
+    if C > 2**31 - 32 * words:
+        raise ValueError(f"C={C} slots exceed the kernel's int32 slot ids")
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    if B == 0:
+    if B == 0 or C == 0:
         return out
-    lib = _dense_lib()
-    if -(-C // lib.sinnamon_dense_run()) > _MAX_GRID_Y:
-        raise ValueError(f"C={C} slots exceed the kernel's grid")
+    used = torch.empty(R, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sinnamon_dense_launch(
-        _CELL_KIND[skmat.dtype], qv.data_ptr(), rows.data_ptr(),
-        brows.data_ptr(), bits.data_ptr(), skmat.data_ptr(), B, L, h, C,
-        bits.shape[1], int(one_sided), out.data_ptr(), stream)
+    err = _dense_lib().sinnamon_dense_launch(
+        _CELL_KIND[skmat.dtype], words, qv.data_ptr(), rows.data_ptr(),
+        brows.data_ptr(), bits.data_ptr(), skmat.data_ptr(), used.data_ptr(),
+        B, L, h, C, bits.shape[1], R, int(one_sided), out.data_ptr(),
+        stream)
     _build.check(err, "sinnamon_score")
     sinnamon_score.launches += 1
     return out
@@ -313,7 +357,9 @@ def sinnamon_score(qv: Tensor, rows: Tensor, brows: Tensor, bits: Tensor,
                    use_kernel: Optional[bool] = None) -> Tensor:
     """Kernel C: dense Algorithm 6 upper bounds f32[B, C] (operands of
     :func:`sinnamon_score_plain`, ungated).  ``use_kernel`` as for
-    :func:`sinnamon_score_topk`."""
+    :func:`sinnamon_score_topk`.  On the card, raises ``ValueError`` when
+    the sketch's rows exceed :func:`dense_tile`'s limit or ``skmat`` does
+    not start on a 16-byte boundary."""
     if _use_kernel(use_kernel, qv):
         return _launch_dense(qv, rows, brows, bits, skmat, one_sided)
     return sinnamon_score_plain(qv, rows, brows, bits, skmat,

@@ -4,7 +4,8 @@ batched queries and report recall against the exact LinScan.
     PYTHONPATH=src python -m repro_torch.launch.serve --docs 10000 \
         --queries 64 [--kprime 800] [--budget 16] [--m 60] [--h 1] \
         [--index-buckets 2048] [--sketch-kind full|lite] \
-        [--value-dtype f32|bf16|f8] [--score-backend fused|grouped|reference] \
+        [--value-dtype f32|bf16|f8] \
+        [--score-backend fused|pallas|grouped|reference] \
         [--auto-tune --tune-memory-mb 8 --recall-floor 0.9] \
         [--query-batch 16] [--dataset splade_like] [--device cuda|cpu] \
         [--seed 0]
@@ -54,9 +55,10 @@ def parse_args(argv=None):
     ap.add_argument("--recall-floor", type=float, default=0.9, metavar="R",
                     help="auto-tune: minimum recall@k on the tuning sample")
     ap.add_argument("--score-backend", default=None,
-                    choices=["reference", "grouped", "fused"],
+                    choices=["reference", "grouped", "fused", "pallas"],
                     help="scoring backend (default: $REPRO_SCORE_BACKEND or "
-                         "'fused', kernel A)")
+                         "'fused', kernel A; 'pallas', the reference "
+                         "launcher's name for it, is an alias of 'fused')")
     ap.add_argument("--dataset", default="splade_like")
     ap.add_argument("--query-batch", type=int, default=16)
     ap.add_argument("--device", default=None,

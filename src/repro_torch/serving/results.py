@@ -35,8 +35,11 @@ class QueryResult:
 
     ``ids``/``scores`` are ``[k]`` for :meth:`QueryServer.query` and
     ``[B, k]`` for :meth:`QueryServer.query_many`.  ``backend`` is the
-    scoring backend that produced the candidates; ``degraded`` marks answers
-    served under the degradation ladder (scores may be upper bounds).
+    scoring backend that produced the candidates, by its canonical name
+    (``reference``, ``grouped``, ``fused`` — also when it was asked for as
+    ``pallas`` — or ``custom`` for a ``score_fn``); ``degraded`` marks
+    answers served under the degradation ladder (scores may be upper
+    bounds).
     """
 
     ids: np.ndarray

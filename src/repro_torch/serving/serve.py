@@ -67,11 +67,13 @@ class QueryServer:
     """Serves one single-device :class:`SinnamonIndex`.
 
     ``score_backend`` picks the scoring backend per server (``reference |
-    grouped | fused``; None -> the index default, then
-    ``ops.resolve_backend``).  ``score_fn`` (batch-native, e.g.
-    ``ops.make_engine_score_fn()``: kernel C) overrides it; results are then
-    labelled ``custom``, no batch runs the staged path and ``degrade >= 2``
-    does not answer sketch-only (it shrinks k' as ``degrade=1`` does).
+    grouped | fused``, or ``pallas`` for ``fused``; None -> the index
+    default, then ``ops.resolve_backend``).  Results carry the canonical
+    name, so ``pallas`` is labelled ``fused``.  ``score_fn`` (batch-native,
+    e.g. ``ops.make_engine_score_fn()``: kernel C) overrides it; results
+    are then labelled ``custom``, no batch runs the staged path and
+    ``degrade >= 2`` does not answer sketch-only (it shrinks k' as
+    ``degrade=1`` does).
     """
 
     def __init__(self, index: eng.SinnamonIndex, k: int = 10,

@@ -194,5 +194,38 @@ def test_backend_env_default(monkeypatch):
     _, T = _pair(SPECS["plain"])
     assert TServer(T)._backend_label() == "grouped"
     monkeypatch.setenv(tops.SCORE_BACKEND_ENV, "pallas")
+    assert tops.resolve_backend(None) == "fused"
+    monkeypatch.setenv(tops.SCORE_BACKEND_ENV, "tpu")
     with pytest.raises(ValueError):
         tops.resolve_backend(None)
+
+
+@pytest.mark.parametrize("cell_bytes", [4, 2, 1])
+@pytest.mark.parametrize("m", [16, 32, 64, 96])
+def test_dense_tile_fits_two_blocks_per_sm(m, cell_bytes):
+    """Kernel C's tile for a one-sided sketch (R = 2m rows): the widest
+    tile whose block fits twice on an SM, sized as the kernel lays out its
+    shared memory (checked against the kernel itself on the card)."""
+    R = 2 * m
+    for h in (1, 3):
+        words, smem = tsinn.dense_tile(R, cell_bytes, h)
+        assert smem == tsinn._dense_smem(R, cell_bytes, words, h)
+        assert smem <= tsinn._DENSE_SMEM_TWO_PER_SM
+        assert all(tsinn._dense_smem(R, cell_bytes, w, h)
+                   > tsinn._DENSE_SMEM_TWO_PER_SM
+                   for w in tsinn._DENSE_WORDS if w > words)
+    # the main path (m=64, bf16) and the tuner's largest sketch (m=96, f32)
+    assert tsinn.dense_tile(128, 2)[0] * 32 == 256
+    assert tsinn.dense_tile(192, 4)[0] * 32 == 64
+
+
+@pytest.mark.parametrize("cell_bytes,r_max", [(4, 1_720), (2, 3_440),
+                                               (1, 6_880)])
+def test_dense_tile_limit(cell_bytes, r_max):
+    """Above two blocks per SM the tile is 32 slots at one block per SM; R
+    rows of 32 slots that do not fit one block's shared memory raise."""
+    words, smem = tsinn.dense_tile(r_max, cell_bytes)
+    assert words == 1
+    assert tsinn._DENSE_SMEM_TWO_PER_SM < smem <= 232_448
+    with pytest.raises(ValueError, match="shared memory"):
+        tsinn.dense_tile(r_max + 1, cell_bytes)

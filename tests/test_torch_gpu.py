@@ -112,23 +112,35 @@ def test_sinnamon_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C, kprime,
     assert int(gs.max()) < C
 
 
-@pytest.mark.parametrize("cell,B,L,h,m,C,one_sided", [
-    ("f32", 2, 5, 2, 8, 384, True),
-    ("bf16", 3, 7, 1, 16, 19_968, True),           # C not a multiple of 2048
-    ("f8", 2, 9, 3, 8, 16_384, True),
-    ("bf16", 4, 6, 2, 8, 8_224, False),            # no lower sketch
-    ("f8", 1, 64, 1, 64, 4_128, False),
-    ("f32", 5, 3, 3, 16, 2_080, True),
-    ("bf16", 0, 4, 1, 8, 256, True),               # empty batch
+@pytest.mark.parametrize("cell,B,L,h,m,C,one_sided,density", [
+    ("f32", 2, 5, 2, 8, 384, True, 0.5),
+    ("bf16", 3, 7, 1, 16, 19_968, True, 0.5),      # C not a multiple of 2048
+    ("f8", 2, 9, 3, 8, 16_384, True, 0.5),
+    ("bf16", 4, 6, 2, 8, 8_224, False, 0.5),       # no lower sketch
+    ("f8", 1, 64, 1, 64, 4_128, False, 0.5),
+    ("f32", 5, 3, 3, 16, 2_080, True, 0.5),
+    ("bf16", 0, 4, 1, 8, 256, True, 0.5),          # empty batch
+    # R at the tuner's limit: m=96 one-sided f32 (R=192, 64-slot tiles)
+    ("f32", 3, 20, 1, 96, 4_096, True, 0.5),
+    # C not a multiple of the tile (256 slots at m=64, bf16 and f8)
+    ("bf16", 2, 12, 1, 64, 1_056, True, 0.5),
+    ("f8", 3, 12, 2, 64, 2_080, True, 0.5),
+    ("bf16", 64, 64, 1, 64, 8_192, True, 0.5),     # B=64: 8 queries a warp
+    ("bf16", 13, 40, 2, 16, 2_560, True, 1 / 64),  # sparse, B not 8k
+    ("f8", 3, 70, 1, 32, 4_096, True, 1 / 64),     # L across 3 chunks
+    ("f32", 4, 33, 3, 16, 3_200, True, 0.5),       # h=3, signed queries
+    ("bf16", 3, 33, 3, 16, 3_200, False, 1 / 64),  # h=3, no lower sketch
+    ("f32", 2, 10, 1, 500, 640, True, 0.5),        # one block per SM
 ])
 def test_dense_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C,
-                                        one_sided):
+                                        one_sided, density):
     """Kernel C == its plain twin bit for bit (brows = -1 and q = 0
     coordinates included in every case)."""
     rng = np.random.default_rng(B * 7 + C)
     qv, rows, brows, bits, _, sk = [
         t.to(cuda) for t in _fused_operands(rng, B, L, h, m, C, 40,
-                                            CELLS[cell], one_sided)]
+                                            CELLS[cell], one_sided,
+                                            density)]
     before = sinnamon_score.sinnamon_score.launches
     got = sinnamon_score.sinnamon_score(qv, rows, brows, bits, sk,
                                         one_sided=one_sided)
@@ -200,6 +212,37 @@ def test_sinnamon_topk_smem_matches_kernel_layout(cuda, L, h, kp):
     lib = sinnamon_score._lib()
     want = sinnamon_score._topk_smem_fixed(kp) + L * (2 + h) * 4
     assert lib.sinnamon_topk_smem(L, h, kp) == want
+
+
+def test_dense_kernel_rejects_misaligned_sketch(cuda):
+    """A sketch view that does not start on a 16-byte boundary raises
+    instead of launching (the kernel copies rows in 16-byte pieces)."""
+    rng = np.random.default_rng(5)
+    qv, rows, brows, bits, _, sk = [
+        t.to(cuda) for t in _fused_operands(rng, 2, 6, 1, 8, 256, 40,
+                                            torch.bfloat16, True)]
+    flat = torch.empty(sk.numel() + 1, dtype=sk.dtype, device=cuda)
+    view = flat[1:].view(sk.shape)
+    view.copy_(sk)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = sinnamon_score.sinnamon_score.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        sinnamon_score.sinnamon_score(qv, rows, brows, bits, view)
+    assert sinnamon_score.sinnamon_score.launches == before
+    got = sinnamon_score.sinnamon_score(qv, rows, brows, bits, sk)
+    assert torch.equal(got, sinnamon_score.sinnamon_score_plain(
+        qv, rows, brows, bits, view))
+
+
+@pytest.mark.parametrize("R,cell_bytes,h", [(16, 4, 1), (128, 2, 1),
+                                            (128, 1, 2), (192, 4, 3),
+                                            (1_720, 4, 1), (6_880, 1, 1)])
+def test_dense_smem_matches_kernel_layout(cuda, R, cell_bytes, h):
+    """The wrapper's tile choice sizes the block as kernel C's own layout
+    does."""
+    lib = sinnamon_score._dense_lib()
+    words, smem = sinnamon_score.dense_tile(R, cell_bytes, h)
+    assert lib.sinnamon_dense_smem(R, cell_bytes, words, h) == smem
 
 
 def test_kernel_rejects_bad_operands(cuda):

@@ -260,8 +260,9 @@ def test_pad_axis_and_backend_names():
     assert p.shape == (1, 8) and p[0, 5:].tolist() == [-1, -1, -1]
     assert tops.pad_axis(x, 0, 1) is x
     assert tops.resolve_backend(None) == "fused"
+    assert tops.resolve_backend("pallas") == "fused"
     with pytest.raises(ValueError):
-        tops.resolve_backend("pallas")
+        tops.resolve_backend("tpu")
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -137,7 +137,64 @@ def test_open_index_unported_rows_raise():
             tapi.open_index(tapi.IndexConfig(n=100, capacity=64, **kw),
                             device="cpu")
     with pytest.raises(ValueError):
-        tapi.IndexConfig(n=100, capacity=64, backend="pallas")
+        tapi.IndexConfig(n=100, capacity=64, backend="tpu")
+
+
+def _pallas_pair(how, monkeypatch):
+    """A reference and a port index over the same corpus, with the fused
+    backend named ``pallas`` by config or by ``REPRO_SCORE_BACKEND``."""
+    idx, val = jsynth.make_corpus(2, DS, 300, pad=64)
+    kw = dict(n=DS.n, capacity=320, m=24, h=2, max_nnz=64,
+              cell_dtype="bf16", store_dtype="float32", seed=1)
+    if how == "config":
+        kw["backend"] = "pallas"
+    else:
+        monkeypatch.setenv("REPRO_SCORE_BACKEND", "pallas")
+    J = japi.open_index(japi.IndexConfig(**kw))
+    T = tapi.open_index(tapi.IndexConfig(**kw), device="cpu")
+    for index in (J, T):
+        index.insert_many(list(range(300)), idx, val)
+        for d in range(0, 300, 7):
+            index.delete(d)
+    return J, T
+
+
+@pytest.mark.parametrize("how", ["config", "env"])
+def test_pallas_backend_name_serves_like_reference(how, monkeypatch):
+    """``pallas`` (the reference's name for the fused backend) works in the
+    port by config and by environment: the same ids as ``repro`` on the
+    same corpus, the same ids as ``fused``, and results labelled
+    ``fused``."""
+    J, T = _pallas_pair(how, monkeypatch)
+    qi, qv = jsynth.make_queries(6, DS, 8, pad=24)
+    jr = JServer(J, k=10, kprime=80,
+                 registry=obs_metrics.NULL_REGISTRY).query_many(qi, qv)
+    assert jr.backend == "pallas"
+    tr = TServer(T, k=10, kprime=80).query_many(qi, qv)
+    assert tr.backend == "fused"
+    np.testing.assert_array_equal(tr.ids, jr.ids)
+    np.testing.assert_allclose(tr.scores, jr.scores, rtol=1e-5, atol=1e-6)
+    for name in ("fused", "pallas"):
+        res = TServer(T, k=10, kprime=80, score_backend=name).query_many(qi,
+                                                                         qv)
+        assert res.backend == "fused"
+        np.testing.assert_array_equal(res.ids, tr.ids)
+    got, _ = T.search_many(qi, qv, k=10, kprime=80, backend="pallas")
+    np.testing.assert_array_equal(got, tr.ids)
+
+
+def test_unknown_backend_name_raises(monkeypatch):
+    from repro_torch.kernels import ops as tops
+    assert tops.resolve_backend("pallas") == "fused"
+    assert tops.resolve_backend("fused") == "fused"
+    for bad in ("tpu", "Pallas", ""):
+        with pytest.raises(ValueError, match="unknown score backend"):
+            tops.resolve_backend(bad)
+    monkeypatch.setenv("REPRO_SCORE_BACKEND", "tpu")
+    with pytest.raises(ValueError, match="unknown score backend"):
+        tops.resolve_backend()
+    monkeypatch.setenv("REPRO_SCORE_BACKEND", "pallas")
+    assert tops.resolve_backend() == "fused"
 
 
 _BLOCKED_IMPORT = r"""
@@ -175,6 +232,21 @@ def test_launcher_runs_on_cpu(capsys):
     from repro_torch.launch import serve as launcher
     launcher.main(["--docs", "300", "--queries", "8", "--query-batch", "4",
                    "--device", "cpu", "--m", "32"])
+    out = capsys.readouterr().out
+    assert "indexed 300 docs over 1 shard(s)" in out
+    recall = float(out.split("recall@10=")[1].split()[0])
+    assert 0.5 <= recall <= 1.0
+
+
+def test_launcher_accepts_pallas_backend(capsys):
+    """``--score-backend pallas``, as written for the reference launcher,
+    serves through the port's fused backend."""
+    from repro_torch.launch import serve as launcher
+    assert launcher.parse_args(["--score-backend", "pallas"]).score_backend \
+        == "pallas"
+    launcher.main(["--docs", "300", "--queries", "8", "--query-batch", "4",
+                   "--device", "cpu", "--m", "32", "--score-backend",
+                   "pallas"])
     out = capsys.readouterr().out
     assert "indexed 300 docs over 1 shard(s)" in out
     recall = float(out.split("recall@10=")[1].split()[0])
