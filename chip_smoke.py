@@ -8,15 +8,19 @@ shard of the paper's MS MARCO deployment (``serve_msmarco``: n=30,000,
 m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
 
 1. device   — the card's name, count and power limit;
-2. build    — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build    — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
               (one nvcc per source, started together), with ptxas's
               registers and shared memory, and kernel C's registers and
               spills per instance (cell type x tile words);
 3. kernels  — each kernel against its plain twin on the card, at the main
               paths' shapes: kernel A + merge bit-equal to the twin + merge
               and kernel C bit-equal to its twin (bf16 and f8 cells, signed
-              queries, padded coordinates); kernel B's rerank and LinScan
-              within rtol = atol = 1e-5 (the sum order differs); kernel D
+              queries, padded coordinates); kernel B's dense-query forms
+              (``csr_score``: rerank and LinScan) within rtol = atol = 1e-5
+              (the sum order differs); its sparse-query rerank with top-k
+              (``csr_rerank_topk``) with ids and slots equal to its twin's
+              and scores within rtol = atol = 1e-5, and bit-equal on an
+              integer-valued batch full of ties; kernel D
               bit-equal to its twin (f32 and bf16 tables, D in {18, 64},
               F in {1, 4, 40}, pads, signed weights, and ``mean``);
 4. main     — the fused path: ``open_index`` + ``insert_many`` of the
@@ -25,14 +29,19 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               ``QueryServer.query_many`` (k=10, k'=800), one staged batch;
               kernel-path ids == plain-twin ids; recall@10 against kernel
               B's exact LinScan, at least ``RECALL_MIN``; a small index
-              whose answer must equal the exact top-10;
+              whose answer must equal the exact top-10; kernel B's LinScan
+              launches for the recall ground truth;
 4b. dense   — the same index served through the ``score_fn`` hook
               (``ops.make_engine_score_fn()``: kernel C + ``topk_desc``),
               20 batches of 16: candidates bit-equal to the on-card
               ``reference`` backend, ids equal to the fused path's, recall@10
               at least ``RECALL_MIN``;
 5. times    — CUDA-event times of each kernel and its twin, the library
-              yardstick for the LinScan (one torch.sparse CSR mat-vec),
+              yardstick for the LinScan (one torch.sparse CSR mat-vec), the
+              rerank kernel beside the route it replaced (densify +
+              ``csr_score`` + gate + ``topk_desc`` + gathers) on the same
+              candidates at B=256 and B=16, against the sparse-query bound
+              and the old dense-query one,
               request latency p50/p99 (the wall time of each ``query_many``
               batch: every request of a batch waits for all of it) and
               throughput in queries/s of both paths; the dense request at
@@ -58,21 +67,25 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               finite, kernel-path logits and bags bit-equal to the twin
               path's on the flattened 6.66 GB table (indices past row
               8,388,607: 64-bit offsets), kernel D once per forward and A,
-              B, C never; kernel D's times against its twin, its byte bound
-              and ``F.embedding_bag``; the forward's time against its f32
-              FLOP bound;
+              B (both forms), C never; kernel D's times against its twin,
+              its byte bound and ``F.embedding_bag``; the forward's time
+              against its f32 FLOP bound;
 6b. recsys retrieval — the item catalog (field 0's 1,000,000 rows)
               sparsified to its top-16 |value| coordinates in a Sinnamon
               index (n=64, m=8, h=1, f32 raw values), 256 users'
               ``user_repr`` served through ``search_many`` (k=10, k'=200):
               recall@10 against the dense exact top-10 (the cost of
               sparsifying) and against the exact sparse top-10 (kernel B's
-              LinScan); kernel-path ids == twin-path ids; A and B launch.
+              LinScan); kernel-path ids == twin-path ids; A and B's rerank
+              kernel launch.
               Peak device memory stays < 40 GB.
 
-Launch counts are read per path: kernels A and B must launch on the fused
-path, C and B on the dense path (and A not at all there), D on neither;
-D alone on the recsys path.  Ends with a JSON line of the recsys numbers, a
+Launch counts are read per path: kernel A and B's rerank kernel
+(``csr_rerank_topk``) must launch on the fused path, C and the rerank
+kernel on the dense path (and A not at all there), D on neither, and
+``csr_score`` on none of them (it launches for the recall ground truth); D
+alone on the recsys path; A and the rerank kernel on the recsys
+retrieval.  Ends with a JSON line of the recsys numbers, a
 JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
@@ -239,7 +252,8 @@ def main(argv=None) -> int:
     import repro_torch.kernels as kernels
     from repro_torch.api import IndexConfig, open_index
     from repro_torch.core import engine as eng
-    from repro_torch.kernels import _build, csr_score, ops, sinnamon_score
+    from repro_torch.kernels import _build, csr_rerank, csr_score, ops
+    from repro_torch.kernels import sinnamon_score
     from repro_torch.serving.serve import QueryServer
     from repro_torch.storage import vecstore
 
@@ -340,6 +354,11 @@ def main(argv=None) -> int:
     log(f"[3 kernels] csr_score rerank (B={Bc}, k'={KPRIME}, P={P}) max abs "
         f"err {err_rerank:.3g}; LinScan over {n_rows} rows max abs err "
         f"{err_scan:.3g} (rtol=atol=1e-5)")
+    # its own generator: the main path's corpus and queries stay the draws
+    # of earlier runs
+    rerank_gen = torch.Generator(device=dev)
+    rerank_gen.manual_seed(args.seed + 1)
+    rerank_against_twin(csr_rerank, rerank_gen, dev, idx, val, slots, Bc, Lc)
     del idx, val, got, want
     kernel_d_against_twin(gen, dev)
     torch.cuda.empty_cache()
@@ -408,8 +427,9 @@ def main(argv=None) -> int:
     counts = kernels.launch_counts()
     log(f"[4 main] served batches of 16 and 256 (k={K}, k'={KPRIME}); "
         f"launches {counts}")
-    check_path_launches(counts, "fused", ("sinnamon_score_topk", "csr_score"),
-                        ("sinnamon_score", "embed_bag"))
+    check_path_launches(counts, "fused",
+                        ("sinnamon_score_topk", "csr_rerank_topk"),
+                        ("sinnamon_score", "embed_bag", "csr_score"))
 
     staged = QueryServer(index, k=K, kprime=KPRIME, trace_every=1)
     lo, res16 = answers[16]
@@ -432,7 +452,11 @@ def main(argv=None) -> int:
 
     lo, res256 = answers[256]
     qi256, qv256 = q_idx[lo:lo + 256], q_val[lo:lo + 256]
+    kernels.reset_launch_counts()
     recall = recall_at_k(res256.ids, exact_top_ids(index, qi256, qv256))
+    linscan_counts = kernels.launch_counts()
+    check_path_launches(linscan_counts, "recall ground truth",
+                        ("csr_score",), ())
     log(f"[4 main] recall@{K}={recall:.4f} over 256 queries against the "
         f"exact LinScan (csr_score)")
     if recall < RECALL_MIN:
@@ -464,9 +488,9 @@ def main(argv=None) -> int:
     log(f"[4b dense] served {DENSE_BATCHES} batches of 16 through "
         f"QueryServer(score_fn=ops.make_engine_score_fn()) (k={K}, "
         f"k'={KPRIME}); launches {dense_counts}")
-    check_path_launches(dense_counts, "dense", ("sinnamon_score",
-                                                "csr_score"),
-                        ("sinnamon_score_topk", "embed_bag"))
+    check_path_launches(dense_counts, "dense",
+                        ("sinnamon_score", "csr_rerank_topk"),
+                        ("sinnamon_score_topk", "embed_bag", "csr_score"))
 
     lo, res_d = dense_answers[-1]
     qi_d, qv_d = q_idx[lo:lo + 16].contiguous(), q_val[lo:lo + 16].contiguous()
@@ -503,7 +527,8 @@ def main(argv=None) -> int:
 
     # -- 5. times ---------------------------------------------------------------
     kernel_rows = times(index, card, q_idx, q_val, answers, counts,
-                        dense_counts, lat, t_start, dense_ptxas)
+                        dense_counts, linscan_counts, lat, t_start,
+                        dense_ptxas)
 
     # -- 4c. the evaluation path (after the served index is freed) -------------
     del index, server, staged, dense, res_f, cv, cs, rv, rs
@@ -533,15 +558,15 @@ def main(argv=None) -> int:
     return 0
 
 
-def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
-          t_start, dense_ptxas):
+def times(index, card, q_idx, q_val, answers, counts, dense_counts,
+          linscan_counts, lat, t_start, dense_ptxas):
     """Phase 5: CUDA-event times of every kernel and its twin at the main
     paths' shapes, their bounds, the serving latencies; returns the kernels
     JSON rows."""
     import torch
 
     from repro_torch.core import engine as eng
-    from repro_torch.kernels import csr_score, ops, sinnamon_score
+    from repro_torch.kernels import csr_rerank, csr_score, ops, sinnamon_score
     from repro_torch.storage import vecstore
 
     st, spec = index.state, index.spec
@@ -599,11 +624,20 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
     row_bytes = P * (4 + st.store.values.element_size())
     b_bound_pq = cand_s.numel() * row_bytes / HBM_BYTES_PER_S * 1e3
 
+    # kernel B's rerank form on the same candidates: the kernel, its twin,
+    # the route it replaced, the wrapper's host time per call
+    qi256c, qv256c = qi256.contiguous(), qv256.contiguous()
+    r256 = rerank_stage(csr_rerank, st, cand_v.contiguous(), cand_s, qi256c,
+                        qv256c, reps=20)
+
     q1 = q_dense[:1].contiguous()
     s_ms = cuda_ms(lambda: csr_score.csr_score(q1, st.store.indices,
                                                st.store.values), reps=5)
     s_plain_ms = cuda_ms(lambda: csr_score.csr_score_plain(
         q1, st.store.indices, st.store.values), reps=2)
+    s_err = finite_max_err(
+        csr_score.csr_score(q1, st.store.indices, st.store.values),
+        csr_score.csr_score_plain(q1, st.store.indices, st.store.values))
     s_bytes, s_ops = kernel_b_work(st.store, None, q1)
     s_bound = max(s_bytes / HBM_BYTES_PER_S, s_ops / F32_OPS_PER_S) * 1e3
     csr = library_csr(st.store, N)
@@ -666,11 +700,14 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
     cs16 = cs16.contiguous()
     b16_ms = cuda_ms(lambda: csr_score.csr_score(
         qd16, st.store.indices, st.store.values, cs16), reps=10)
+    r16 = rerank_stage(csr_rerank, st, cv16, cs16, qi16, qv16, reps=20)
     del s16, gated16
     dense_p50 = lat["dense B=16"]["p50"]
     split = {"p50_ms": dense_p50, "prep_ms": prep_ms, "kernel_c_ms": c_ms,
              "gate_ms": gate_ms, "topk_desc_ms": topk_ms,
-             "rerank_ms": rerank_ms, "rerank_csr_score_ms": b16_ms}
+             "rerank_ms": rerank_ms, "rerank_kernel_ms": r16["ms"],
+             "rerank_old_route_ms": r16["old_route_ms"],
+             "rerank_old_csr_score_ms": b16_ms}
     split["rest_ms"] = dense_p50 - (prep_ms + c_ms + gate_ms + topk_ms
                                     + rerank_ms)
 
@@ -684,6 +721,19 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
     log(f"[5 times]   csr_score rerank B=256 k'={KPRIME}: {b_ms:.4f} ms (twin "
         f"{b_plain_ms:.3f} ms, bound {b_bound:.4f} ms, every gathered row "
         f"{b_bound_pq:.4f} ms)")
+    for bsz, r in ((256, r256), (16, r16)):
+        log(f"[5 times]   csr_rerank_topk B={bsz} k'={KPRIME} k={K}: "
+            f"{r['ms']:.4f} ms, device alone {r['device_ms']} ms "
+            f"(S={r['blocks_per_query']} blocks a query; twin "
+            f"{r['plain_ms']:.3f} ms; sparse-query bound "
+            f"{r['bound_ms']:.4f} ms, {r['bound_by']}; the old route "
+            f"densify + csr_score + gate + topk_desc + gathers "
+            f"{r['old_route_ms']:.4f} ms, its kernels on the device "
+            f"{r['old_route_device_ms']} ms, its dense-query bound "
+            f"{r['old_bound_ms']:.4f} ms; wrapper host time "
+            f"{r['host_ms']:.4f} ms a call; ids and slots == twin's, "
+            f"max abs err {r['max_abs_err']:.3g}; ids == the old route's: "
+            f"{r['same_as_old_route']})")
     log(f"[5 times]   csr_score LinScan B=1 C={C}: {s_ms:.4f} ms (twin "
         f"{s_plain_ms:.3f} ms, torch.sparse CSR mv {s_lib_ms:.4f} ms, "
         f"bound {s_bound:.4f} ms; library max abs diff {lib_err:.3g})")
@@ -698,8 +748,9 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
     log(f"[5 times]   dense request B=16: p50 {dense_p50:.4f} ms = operand "
         f"prep {prep_ms:.4f} + kernel C {c_ms:.4f} + gate {gate_ms:.4f} + "
         f"topk_desc over 16 x {C} keys {topk_ms:.4f} + rerank "
-        f"{rerank_ms:.4f} (csr_score {b16_ms:.4f}) + the rest (host, "
-        f"copies) {split['rest_ms']:.4f} ms")
+        f"{rerank_ms:.4f} (kernel {r16['ms']:.4f}; the old route "
+        f"{r16['old_route_ms']:.4f}, its csr_score {b16_ms:.4f}) + the rest "
+        f"(host, copies) {split['rest_ms']:.4f} ms")
     for key, p in lat.items():
         log(f"[5 times]   serving {key}: request latency (batch wall "
             f"time) p50 {p['p50']:.4f} ms, p99 {p['p99']:.4f} ms over "
@@ -725,14 +776,32 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts, lat,
         {"name": "csr_score", "route": "cuda",
          "source": f"{src}/csr_score.cu",
          "replaces": "src/repro/kernels/csr_score.py:50",
-         "launches": counts["csr_score"], "max_abs_err": b_err,
-         "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
-         "bound_by": "bytes" if b_bytes / HBM_BYTES_PER_S
-         >= b_ops / F32_OPS_PER_S else "operations",
-         "library_ms": None, "shape": f"rerank B=256 k'={KPRIME} P={P}",
-         "bound_ms_every_gathered_row": b_bound_pq,
-         "linscan_ms": s_ms, "linscan_plain_ms": s_plain_ms,
-         "linscan_bound_ms": s_bound, "linscan_library_ms": s_lib_ms},
+         "launches": linscan_counts["csr_score"], "max_abs_err": s_err,
+         "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": s_bound,
+         "bound_by": "bytes" if s_bytes / HBM_BYTES_PER_S
+         >= s_ops / F32_OPS_PER_S else "operations",
+         "library_ms": s_lib_ms, "shape": f"LinScan B=1 C={C} P={P}",
+         "launches_from": "phase 4's recall ground truth (LinScan); 0 on "
+                          "the fused, dense and 6b paths",
+         "rerank_form_ms": b_ms, "rerank_form_plain_ms": b_plain_ms,
+         "rerank_form_bound_ms": b_bound,
+         "rerank_form_max_abs_err": b_err,
+         "rerank_form_bound_ms_every_gathered_row": b_bound_pq},
+        {"name": "csr_rerank_topk", "route": "cuda",
+         "source": f"{src}/csr_rerank.cu",
+         "replaces": "src/repro/kernels/csr_score.py:50",
+         "launches": counts["csr_rerank_topk"],
+         "max_abs_err": r256["max_abs_err"], "ms": r256["ms"],
+         "plain_ms": r256["plain_ms"], "bound_ms": r256["bound_ms"],
+         "bound_by": r256["bound_by"], "library_ms": None,
+         "shape": f"B=256 k'={KPRIME} k={K} P={P} Lq={qi256c.shape[1]}",
+         "launches_dense": dense_counts["csr_rerank_topk"],
+         "blocks_per_query": r256["blocks_per_query"],
+         "host_ms": r256["host_ms"], "device_ms": r256["device_ms"],
+         "old_route_ms": r256["old_route_ms"],
+         "old_route_device_ms": r256["old_route_device_ms"],
+         "old_bound_ms": r256["old_bound_ms"],
+         "b16": r16},
         {"name": "sinnamon_score", "route": "cuda",
          "source": f"{src}/sinnamon_dense.cu",
          "replaces": "src/repro/kernels/sinnamon_score.py:211",
@@ -926,7 +995,7 @@ def recsys_path(seed: int, dev, card: str):
                              f"times in {forwards} forwards")
     check_path_launches(counts, "recsys", ("embed_bag",),
                         ("sinnamon_score_topk", "csr_score",
-                         "sinnamon_score"))
+                         "sinnamon_score", "csr_rerank_topk"))
 
     b = on_card(host_batch(0, B_p99))
     lk = recsys.score(model, b, cfg)
@@ -1150,8 +1219,8 @@ def recsys_retrieval(model, cfg, host_batch, on_card, seed, dev) -> dict:
         f"m={ITEM_M}, h=1, f32 values) in {t_build:.1f}s; 5 batches of "
         f"{USERS} users (k={K}, k'={ITEM_KPRIME}); launches {counts}")
     check_path_launches(counts, "recsys retrieval",
-                        ("sinnamon_score_topk", "csr_score"),
-                        ("sinnamon_score", "embed_bag"))
+                        ("sinnamon_score_topk", "csr_rerank_topk"),
+                        ("sinnamon_score", "embed_bag", "csr_score"))
     if ids.shape != (USERS, K) or not np.isfinite(scores).all():
         raise AssertionError(f"bad retrieval result {ids.shape}")
 
@@ -1308,6 +1377,162 @@ def doc_freq(state):
     idx = state.store.indices
     live = idx[(idx >= 0) & state.active[:, None]].long()
     return torch.bincount(live, minlength=state.bits.shape[0])
+
+
+def rerank_against_twin(csr_rerank, gen, dev, idx, val, slots, B, Lq):
+    """Phase 3: kernel B's rerank form against its twin on the card.  First
+    the rows and candidate lists of the dense-query check with sparse
+    queries (a duplicate and four pads each) and a tenth of the candidates
+    gated: ids and slots equal, scores within rtol = atol = 1e-5.  Then an
+    integer-valued batch full of ties (65,536 rows over 2,000 coordinates)
+    at B=16 and B=256 (every cluster split the main path takes), k=10 and
+    k=k': ids, scores and slots bit-equal."""
+    import torch
+    ids = torch.randint(0, 2**40, (idx.shape[0],), generator=gen, device=dev)
+    qi = torch.randint(0, N, (B, Lq), generator=gen, device=dev,
+                       dtype=torch.int32)
+    qi[:, 1] = qi[:, 0]
+    qi[:, -4:] = -1
+    qv = torch.randn((B, Lq), generator=gen, device=dev)
+    cand = torch.randn(slots.shape, generator=gen, device=dev)
+    cand[torch.rand(slots.shape, generator=gen, device=dev) < 0.1] = -torch.inf
+    args = (qi, qv, idx, val, ids, cand, slots, K)
+    got = csr_rerank.csr_rerank_topk(*args)
+    want = csr_rerank.csr_rerank_topk_plain(*args)
+    torch.cuda.synchronize()
+    check_rerank(got, want, "phase 3's batch")
+    err = finite_max_err(got[1], want[1])
+    rows, vocab = 65_536, 2_000
+    t_idx = torch.randint(-1, vocab, (rows, P), generator=gen, device=dev,
+                          dtype=torch.int32)
+    t_val = torch.randint(-3, 4, (rows, P), generator=gen,
+                          device=dev).to(torch.bfloat16)
+    t_ids = torch.arange(rows, device=dev) * 7
+    ties = 0
+    for bt in (16, 256):
+        qi = torch.randint(0, vocab, (bt, Lq), generator=gen, device=dev,
+                           dtype=torch.int32)
+        qi[:, -4:] = -1
+        qv = torch.randint(-2, 3, (bt, Lq), generator=gen,
+                           device=dev).float()
+        sl = torch.randint(0, rows, (bt, KPRIME), generator=gen, device=dev,
+                           dtype=torch.int32)
+        cand = torch.randn((bt, KPRIME), generator=gen, device=dev)
+        cand[torch.rand((bt, KPRIME), generator=gen, device=dev)
+             < 0.1] = -torch.inf
+        for k in (K, KPRIME):
+            a = (qi, qv, t_idx, t_val, t_ids, cand, sl, k)
+            got = csr_rerank.csr_rerank_topk(*a)
+            want = csr_rerank.csr_rerank_topk_plain(*a)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[2], want[2])
+                    and torch.equal(got[1].view(torch.int32),
+                                    want[1].view(torch.int32))):
+                raise AssertionError(f"csr_rerank_topk != twin on the "
+                                     f"integer tie batch (B={bt}, k={k})")
+            fin = torch.isfinite(want[1])
+            ties += int(((want[1][:, 1:] == want[1][:, :-1])
+                         & fin[:, 1:]).sum())
+    log(f"[3 kernels] csr_rerank_topk (B={B}, k'={KPRIME}, k={K}, P={P}, "
+        f"Lq={Lq}, sparse queries, a tenth gated): ids and slots == twin's, "
+        f"max abs err {err:.3g} (rtol=atol=1e-5); integer batch at B=16 "
+        f"and 256, k={K} and {KPRIME}: ids, scores and slots bit-equal "
+        f"({ties} adjacent finite ties)")
+
+
+def check_rerank(got, want, what: str) -> None:
+    """Kernel B's rerank form against its twin: ids and slots equal, scores
+    within rtol = atol = 1e-5."""
+    import torch
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+        raise AssertionError(f"csr_rerank_topk ids/slots != its twin's on "
+                             f"{what}")
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+def old_rerank(state, cand_scores, cand_slots, q_idx, q_val, k):
+    """The rerank route the kernel replaced, kept as a yardstick: the
+    queries densified to f32[B, n], ``csr_score``'s slots form, the gate,
+    ``topk_desc`` and the gathers."""
+    import torch
+
+    from repro_torch.kernels import csr_score
+    from repro_torch.kernels.sinnamon_score import topk_desc
+    from repro_torch.storage import vecstore
+    q_dense = vecstore.densify_query(N, q_idx, q_val)
+    exact = csr_score.csr_score(q_dense, state.store.indices,
+                                state.store.values, cand_slots)
+    exact = torch.where(torch.isneginf(cand_scores), -torch.inf, exact)
+    top, pos = topk_desc(exact, k)
+    slots = cand_slots.gather(-1, pos.long())
+    return state.ids[slots.long()], top, slots
+
+
+def rerank_stage(csr_rerank, st, cand_v, cand_s, qi, qv, reps):
+    """Kernel B's rerank form on one batch of the main path's candidates:
+    its CUDA-event time, its twin's, the old route's on the same inputs,
+    the wrapper's host time per call, the kernel's device time alone and
+    the old route's kernels' summed (torch.profiler), the sparse-query
+    bound and the old dense-query one; its answer held against the
+    twin's."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.storage import vecstore
+    args = (qi, qv, st.store.indices, st.store.values, st.ids, cand_v,
+            cand_s, K)
+    ms = cuda_ms(lambda: csr_rerank.csr_rerank_topk(*args), reps=reps)
+    plain_ms = cuda_ms(lambda: csr_rerank.csr_rerank_topk_plain(*args),
+                       reps=2)
+    old_ms = cuda_ms(lambda: old_rerank(st, cand_v, cand_s, qi, qv, K),
+                     reps=reps)
+    host = host_ms(lambda: csr_rerank.csr_rerank_topk(*args), reps=200)
+    # device time alone: at small B a call's host time exceeds its kernel
+    _, by_name = device_profile(lambda: csr_rerank.csr_rerank_topk(*args), 50)
+    _, old_by_name = device_profile(
+        lambda: old_rerank(st, cand_v, cand_s, qi, qv, K), 50)
+    got = csr_rerank.csr_rerank_topk(*args)
+    want = csr_rerank.csr_rerank_topk_plain(*args)
+    old = old_rerank(st, cand_v, cand_s, qi, qv, K)
+    torch.cuda.synchronize()
+    check_rerank(got, want, f"the main path's B={qi.shape[0]} batch")
+    nbytes, ops = rerank_work(st.store, qi, cand_v, cand_s, K)
+    o_bytes, o_ops = kernel_b_work(st.store, cand_s,
+                                   vecstore.densify_query(N, qi, qv))
+    return {"ms": ms, "plain_ms": plain_ms, "old_route_ms": old_ms,
+            "host_ms": host,
+            "device_ms": sum(v for n, v in by_name.items()
+                             if "csr_rerank" in n) if by_name else None,
+            "old_route_device_ms": sum(old_by_name.values())
+            if old_by_name else None,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / F32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / F32_OPS_PER_S else "operations",
+            "old_bound_ms": max(o_bytes / HBM_BYTES_PER_S,
+                                o_ops / F32_OPS_PER_S) * 1e3,
+            "max_abs_err": finite_max_err(got[1], want[1]),
+            "blocks_per_query": csr_rerank.split(
+                qi.shape[0], cand_s.shape[1], _build.sm_count(qi.device)),
+            "same_as_old_route": bool(torch.equal(got[0], old[0]))}
+
+
+def rerank_work(store, q_idx, cand_scores, cand_slots, k):
+    """Bytes and f32 operations the rerank kernel needs: each distinct
+    candidate row that is not gated read once, the candidate scores and
+    slots, the sparse queries, the ids it gathers and its outputs written
+    once; one multiply-add per stored entry of each scored (query,
+    candidate) pair."""
+    import torch
+    rows = cand_slots[~torch.isneginf(cand_scores)].long()
+    row_bytes = store.indices.shape[1] * (4 + store.values.element_size())
+    n_rows = torch.unique(rows).numel()
+    nnz = int((store.indices[rows] >= 0).sum())
+    out = cand_slots.shape[0] * k
+    nbytes = (n_rows * row_bytes + cand_slots.numel() * 8
+              + q_idx.numel() * 8 + out * (8 + 8 + 4 + 4))
+    return nbytes, 2 * nnz
 
 
 def kernel_b_work(store, slots, q_dense):

@@ -468,21 +468,21 @@ def rerank_topk(state: SinnamonState, cand_scores: Tensor, cand_slots: Tensor,
                 use_kernel: Optional[bool] = None):
     """Algorithm 7 back half: exact rerank of [B, k'] candidates.
 
-    The batch's queries are densified (f32[B, n]) and the ``csr_score``
-    kernel scores the candidate rows; slots whose upper bound was gated to
-    -inf stay -inf.  Returns (ids int64[B, k], scores f32[B, k],
+    The candidate CSR rows are scored against the sparse queries (duplicate
+    coordinates combined; no dense query), slots whose upper bound was
+    gated to -inf stay -inf, and the top-k is taken in (score desc,
+    candidate position asc) order.  On CUDA tensors that is one launch of
+    the ``csr_rerank_topk`` kernel; on CPU tensors its plain twin, the
+    reference's steps.  Returns (ids int64[B, k], scores f32[B, k],
     slots int32[B, k]).
     """
-    from repro_torch.kernels import csr_score as _csr
-    from repro_torch.kernels.sinnamon_score import topk_desc
+    from repro_torch.kernels import csr_rerank as _rr
 
-    q_dense = vecstore.densify_query(state.mappings.shape[1], q_idx, q_val)
-    exact = _csr.csr_score(q_dense, state.store.indices, state.store.values,
-                           cand_slots.contiguous(), use_kernel=use_kernel)
-    exact = torch.where(torch.isneginf(cand_scores), -torch.inf, exact)
-    top, pos = topk_desc(exact, k)
-    slots = cand_slots.gather(-1, pos.long())
-    return state.ids[slots.long()], top, slots
+    return _rr.csr_rerank_topk(
+        q_idx.to(torch.int32).contiguous(),
+        q_val.to(torch.float32).contiguous(), state.store.indices,
+        state.store.values, state.ids, cand_scores.contiguous(),
+        cand_slots.contiguous(), k, use_kernel=use_kernel)
 
 
 def search_batch(state, spec, q_idx, q_val, k, kprime, budget=None,

@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-KERNELS = ("sinnamon_score", "csr_score", "sinnamon_dense", "embed_bag")
+KERNELS = ("sinnamon_score", "csr_score", "sinnamon_dense", "embed_bag",
+           "csr_rerank")
 
 #: Shared memory one block may use on Hopper (sm_90), in bytes.
 SMEM_PER_BLOCK = 232_448

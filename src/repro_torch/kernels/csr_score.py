@@ -1,4 +1,4 @@
-"""Kernel B: exact padded-CSR scoring (Algorithm 7 rerank and exact LinScan).
+"""Kernel B: exact padded-CSR scoring of dense queries (exact LinScan).
 
 Replaces the Pallas TPU kernel ``csr_score`` of ``repro/kernels/csr_score.py``.
 The CUDA source is ``csrc/csr_score.cu``; its header says what bounds the
@@ -7,9 +7,12 @@ dense query held in shared memory, one warp per row).
 
 Two modes, one kernel:
 
-* ``slots`` int32[B, K] given — the rerank: scores of each query's K
-  candidate rows, f32[B, K];
-* ``slots`` None — the exact LinScan over all C rows, f32[B, C].
+* ``slots`` None — the exact LinScan over all C rows, f32[B, C] (the recall
+  ground truth, ``ops.exact_scores_all``);
+* ``slots`` int32[B, K] given — scores of K named rows per query,
+  f32[B, K].  The engine's rerank no longer uses it: ``csr_rerank`` scores
+  the candidates from the sparse query and selects the top-k in one launch;
+  this form stays as that kernel's yardstick.
 
 :func:`csr_score` launches the kernel for CUDA tensors and raises if the
 build or the launch fails; for CPU tensors it runs the plain twin

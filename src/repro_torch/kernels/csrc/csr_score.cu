@@ -3,10 +3,13 @@
 // Replaces the Pallas TPU kernel `csr_score` of
 // src/repro/kernels/csr_score.py (body `_kernel`): exact <q, x> of a dense
 // query against padded-CSR rows, pad index -1 counted as 0.  Two modes:
-// * rerank (Algorithm 7): `slots` [B, K] names the K candidate rows of each
-//   query; out is f32[B, K];
 // * exact LinScan: `slots` is null and every one of the K = C rows is
-//   scored; out is f32[B, C].
+//   scored; out is f32[B, C] (the recall ground truth and the exact
+//   baseline);
+// * slots: `slots` [B, K] names K rows of each query; out is f32[B, K].
+//   The engine's Algorithm 7 rerank no longer calls it: csr_rerank.cu
+//   scores the candidates from the sparse query and selects the top-k in
+//   one launch.  This form stays as that kernel's yardstick.
 //
 // What bounds it on an H100: bytes.  Each scored row is P*(4 + value bytes)
 // read once; the arithmetic is one multiply-add per byte-heavy gather.  The

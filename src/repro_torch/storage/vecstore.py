@@ -96,8 +96,11 @@ def exact_scores_rows(idx: Tensor, val: Tensor, q_idx: Tensor,
     pos = torch.searchsorted(qs.contiguous(), idx.to(qs.dtype).contiguous())
     pos = pos.clamp(0, qs.shape[0] - 1)
     hit = (qs[pos] == idx) & (idx >= 0)
-    qd = torch.where(hit, comb[pos], 0.0)
-    return (qd * val).sum(-1)
+    prod = torch.where(hit, comb[pos], 0.0) * val
+    # A one-entry row's score is its product, signed zero included, as the
+    # reference's sum over a length-1 axis gives; torch's sum would turn a
+    # -0.0 into +0.0, and the top-k order tells the two apart.
+    return prod[..., 0] if prod.shape[-1] == 1 else prod.sum(-1)
 
 
 def exact_scores_sparse(store: VecStore, slots: Tensor, q_idx: Tensor,

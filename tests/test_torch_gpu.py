@@ -1,7 +1,8 @@
 """Kernel-against-twin checks on the card (marker ``gpu``).
 
 Each CUDA kernel of ``repro_torch`` (A: ``sinnamon_score_topk``, B:
-``csr_score``, C: ``sinnamon_score``, D: ``embed_bag``) is run at small shapes on CUDA
+``csr_score`` and its rerank form ``csr_rerank_topk``, C: ``sinnamon_score``,
+D: ``embed_bag``) is run at small shapes on CUDA
 tensors and held against its plain-torch twin on the same tensors.  The tests skip
 when no CUDA device is present; the decision is made inside a fixture, so
 every worker collects the same tests.  Run them on the card with
@@ -17,7 +18,8 @@ torch.set_num_threads(2)
 
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.data import synth  # noqa: E402
-from repro_torch.kernels import csr_score, embed_bag, ops  # noqa: E402
+from repro_torch.kernels import _build, csr_rerank, csr_score  # noqa: E402
+from repro_torch.kernels import embed_bag, ops  # noqa: E402
 from repro_torch.kernels import sinnamon_score  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -362,3 +364,210 @@ def test_dlrm_kernel_path_bit_equal_to_twin_path(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# -- kernel B's rerank form: csr_rerank_topk ---------------------------------
+
+def _rerank_operands(rng, B, Kp, C, P, n, vdt, cuda, Lq=64, integer=False,
+                     gate=0.1):
+    """Rows with pads, queries with duplicate, padded and row-sharing
+    coordinates, distinct candidate slots per query, a share gated to
+    -inf.  ``integer`` draws small integers: every sum is exact."""
+    idx = rng.integers(0, n, (C, P)).astype(np.int32)
+    idx[rng.random((C, P)) < 0.2] = -1
+    qi = rng.integers(0, n, (B, Lq)).astype(np.int32)
+    h = min(P // 2, Lq // 2)
+    if h:
+        qi[:, :h] = idx[rng.integers(0, C, B), :h]
+    qi[:, h:h + 2] = qi[:, :1]                     # duplicates
+    qi[:, -4:] = -1                                # pads
+    if integer:
+        val = rng.integers(-3, 4, (C, P)).astype(np.float32)
+        qv = rng.integers(-2, 3, (B, Lq)).astype(np.float32)
+    else:
+        val = rng.normal(0, 1, (C, P)).astype(np.float32)
+        qv = rng.normal(0, 1, (B, Lq)).astype(np.float32)
+    slots = np.stack([rng.permutation(C)[:Kp] for _ in range(B)])
+    cand = rng.normal(0, 1, (B, Kp)).astype(np.float32)
+    cand[rng.random((B, Kp)) < gate] = -np.inf
+    ids = rng.integers(0, 2**40, C).astype(np.int64)
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=cuda)  # noqa: E731
+    return (t(qi, torch.int32), t(qv, torch.float32), t(idx, torch.int32),
+            t(val, torch.float32).to(vdt), t(ids, torch.int64),
+            t(cand, torch.float32), t(slots, torch.int32))
+
+
+def _assert_rerank_close(got, want, rtol=1e-5, atol=1e-5):
+    """Scores within rtol = atol and slots equal, except that a place may
+    hold another candidate whose twin score agrees with the twin's there
+    within that tolerance (kernel and twin sum a row in different orders,
+    so two such candidates may swap)."""
+    (_, gs, gl), (_, ws, wl) = got, want
+    torch.testing.assert_close(gs, ws, rtol=rtol, atol=atol)
+    for b, i in (gl != wl).nonzero().tolist():
+        s_, v = int(gl[b, i]), float(gs[b, i])
+        at = (wl[b] == s_).nonzero()
+        w = float(ws[b, at[0, 0]] if at.numel() else ws[b, -1])
+        assert v == w or abs(v - w) <= atol + rtol * abs(w), (b, i)
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Kp,C,P,n", [
+    (1, 40, 96, 1, 300),              # one entry a row: scalar, G = 1
+    (16, 40, 96, 7, 300),             # scalar loads, G = 2
+    (3, 130, 300, 17, 700),           # S = 3 uneven blocks, G = 32
+    (16, 200, 512, 12, 300),          # P % 8 == 4: 16-byte loads of four
+    (1, 800, 4096, 128, 30_000),      # S = 8
+    (16, 800, 4096, 128, 30_000),     # the main path's B = 16: S = 8
+    (64, 800, 4096, 128, 30_000),     # S = 3
+    (256, 800, 4096, 128, 30_000),    # S = 1
+    (256, 200, 2_048, 16, 64),        # the recsys retrieval's shape
+])
+def test_rerank_kernel_matches_twin(cuda, vdt, B, Kp, C, P, n):
+    rng = np.random.default_rng(B * 7 + P)
+    ops_ = _rerank_operands(rng, B, Kp, C, P, n, vdt, cuda)
+    for k in (1, 10, Kp):
+        before = csr_rerank.csr_rerank_topk.launches
+        got = csr_rerank.csr_rerank_topk(*ops_, k)
+        assert csr_rerank.csr_rerank_topk.launches == before + 1
+        want = csr_rerank.csr_rerank_topk_plain(*ops_, k)
+        torch.cuda.synchronize()
+        assert got[0].shape == (B, k) and got[2].dtype == torch.int32
+        _assert_rerank_close(got, want)
+        assert torch.equal(got[0], ops_[4][got[2].long()])
+
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,P", [(1, 128), (16, 128), (256, 128), (16, 7),
+                                 (256, 16)])
+def test_rerank_kernel_bit_equal_on_integer_ties(cuda, vdt, B, P):
+    """Integer-valued rows and queries: every sum is exact in f32, scores
+    tie often, and ids, scores and slots are bit-equal to the twin's, the
+    ties broken by candidate position (k = 10 merges S * k keys in rank
+    0's shared memory, k = K' through distributed shared memory)."""
+    rng = np.random.default_rng(B + P)
+    ops_ = _rerank_operands(rng, B, 800, 4096, P, 300, vdt, cuda,
+                            integer=True)
+    for k in (10, 800):
+        got = csr_rerank.csr_rerank_topk(*ops_, k)
+        want = csr_rerank.csr_rerank_topk_plain(*ops_, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+    assert (want[1][:, :-1] == want[1][:, 1:]).any()
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+def test_rerank_kernel_every_split(cuda, S):
+    """Each cluster size S the wrapper picks at k' = 800 (B = the card's
+    SMs / S, rounded up): bit-equal to the twin on an integer batch."""
+    sms = _build.sm_count(cuda)
+    B = -(-sms // S)
+    assert csr_rerank.split(B, 800, sms) == S
+    rng = np.random.default_rng(S)
+    ops_ = _rerank_operands(rng, B, 800, 4096, 128, 300, torch.bfloat16,
+                            cuda, integer=True)
+    for k in (10, 800):
+        got = csr_rerank.csr_rerank_topk(*ops_, k)
+        want = csr_rerank.csr_rerank_topk_plain(*ops_, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("B", [1, 16, 256])
+def test_rerank_kernel_all_gated(cuda, B):
+    """Every candidate gated: the answer is the first k positions in order,
+    all -inf, and no row is read (the rows here hold NaN)."""
+    rng = np.random.default_rng(B)
+    qi, qv, idx, val, ids, cand, slots = _rerank_operands(
+        rng, B, 800, 4096, 128, 30_000, torch.float32, cuda)
+    cand.fill_(-torch.inf)
+    val.fill_(torch.nan)
+    got = csr_rerank.csr_rerank_topk(qi, qv, idx, val, ids, cand, slots, 10)
+    torch.cuda.synchronize()
+    assert torch.isneginf(got[1]).all()
+    assert torch.equal(got[2], slots[:, :10])
+    assert torch.equal(got[0], ids[slots[:, :10].long()])
+
+
+def test_rerank_kernel_unaligned_rows(cuda):
+    """Rows that do not start on a 16-byte boundary take scalar loads and
+    give the same answer."""
+    rng = np.random.default_rng(3)
+    qi, qv, idx, val, ids, cand, slots = _rerank_operands(
+        rng, 16, 800, 4096, 128, 30_000, torch.bfloat16, cuda, integer=True)
+    base = torch.empty(idx.numel() + 1, dtype=idx.dtype, device=cuda)
+    view = base[1:].view(idx.shape)
+    view.copy_(idx)
+    assert view.data_ptr() % 16
+    got = csr_rerank.csr_rerank_topk(qi, qv, view, val, ids, cand, slots, 10)
+    want = csr_rerank.csr_rerank_topk(qi, qv, idx, val, ids, cand, slots, 10)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_rerank_kernel_at_its_caps(cuda):
+    """K' = 32,768 candidates (eight blocks of 4,096) and a query of 4,096
+    coordinates: the largest block the wrapper allows launches, fits the
+    card's shared memory and matches the twin."""
+    rng = np.random.default_rng(4)
+    Kp, Lq = csr_rerank.MAX_KPRIME, csr_rerank.MAX_QUERY_NNZ
+    ops_ = _rerank_operands(rng, 2, Kp, Kp, 16, 30_000, torch.float32, cuda,
+                            Lq=Lq, integer=True)
+    lib = csr_rerank._lib()
+    for k in (10, 256, Kp):
+        assert lib.csr_rerank_smem(Lq, Kp, k, 8) <= _build.SMEM_PER_BLOCK
+        got = csr_rerank.csr_rerank_topk(*ops_, k)
+        want = csr_rerank.csr_rerank_topk_plain(*ops_, k)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert lib.csr_rerank_launch(0, 4, *([None] * 2), 1, Lq + 1,
+                                 *([None] * 2), 16, 2, *([None] * 3), 800,
+                                 10, 1, *([None] * 4)) != 0
+
+
+def test_rerank_kernel_rejects_bad_operands(cuda):
+    rng = np.random.default_rng(5)
+    qi, qv, idx, val, ids, cand, slots = _rerank_operands(
+        rng, 4, 40, 96, 8, 300, torch.float32, cuda)
+    before = csr_rerank.csr_rerank_topk.launches
+    for args in ((qi.long(), qv, idx, val, ids, cand, slots),
+                 (qi, qv, idx, val, ids, cand, slots.cpu()),
+                 (qi, qv, idx, val.half(), ids, cand, slots),
+                 (qi, qv, idx, val, ids, cand[:, :-1].contiguous(), slots)):
+        with pytest.raises(ValueError):
+            csr_rerank.csr_rerank_topk(*args, 10)
+    assert csr_rerank.csr_rerank_topk.launches == before
+
+
+def test_rerank_topk_is_one_launch_and_no_csr_score(cuda):
+    """``engine.rerank_topk`` on CUDA tensors is one launch of the rerank
+    kernel and none of ``csr_score``; the search's ids equal the CPU
+    index's."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    ds = synth.SparseDatasetSpec("t", n=500, psi_doc=24, psi_query=12)
+    idx, val = synth.make_corpus(0, ds, 300, pad=48)
+    qi, qv = synth.make_queries(1, ds, 8, pad=24)
+    spec = teng.EngineSpec(n=500, m=16, h=2, capacity=320, max_nnz=48,
+                           value_dtype="bfloat16", seed=3)
+    want = {}
+    for dev in ("cpu", "cuda"):
+        index = teng.SinnamonIndex(spec, device=dev)
+        index.insert_many(list(range(300)), idx, val)
+        want[dev] = index.search_many(qi, qv, k=10, kprime=60)[0]
+    np.testing.assert_array_equal(want["cuda"], want["cpu"])
+    t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=cuda)  # noqa: E731
+    q = (t(qi, torch.int32), t(qv, torch.float32))
+    cv, cs = teng.topk_candidates(index.state, spec, *q, 60)
+    reset_launch_counts()
+    for _ in range(3):
+        teng.rerank_topk(index.state, cv, cs, *q, 10)
+    counts = launch_counts()
+    assert counts["csr_rerank_topk"] == 3 and counts["csr_score"] == 0
+    reset_launch_counts()
+    teng.search_batch(index.state, spec, *q, 10, 60)
+    counts = launch_counts()
+    assert counts["csr_rerank_topk"] == 1 and counts["csr_score"] == 0
