@@ -22,7 +22,9 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               and scores within rtol = atol = 1e-5, and bit-equal on an
               integer-valued batch full of ties; kernel D
               bit-equal to its twin (f32 and bf16 tables, D in {18, 64},
-              F in {1, 4, 40}, pads, signed weights, and ``mean``);
+              F in {1, 4, 40}, pads, signed weights, and ``mean``), and its
+              stacked form (26 fields, hot 1 and 4, every launch variant)
+              into rows 1.. of a [512, 27, 64] buffer, row 0 untouched;
 4. main     — the fused path: ``open_index`` + ``insert_many`` of the
               shard, ``delete_many`` of 1/16 of it and re-insert into the
               dirty slots, serve batches of 16 and 256 through
@@ -65,11 +67,17 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               back), samples/s and, under torch.profiler, the device busy
               share and the largest kernels of each request kind; logits
               finite, kernel-path logits and bags bit-equal to the twin
-              path's on the flattened 6.66 GB table (indices past row
-              8,388,607: 64-bit offsets), kernel D once per forward and A,
-              B (both forms), C never; kernel D's times against its twin,
-              its byte bound and ``F.embedding_bag``; the forward's time
-              against its f32 FLOP bound;
+              path's (indices past row 8,388,607: 64-bit offsets), kernel D
+              once per forward and A, B (both forms), C never; kernel D's
+              stacked form (one launch from the request's indices into
+              rows 1.. of the [B, 27, 64] interaction buffer) in each launch
+              variant beside the route it replaced (field-offset operands,
+              the flat form with a ones weight tensor, ``torch.cat``), its
+              flat form against its twin on the flattened 6.66 GB table, the
+              byte bounds and ``F.embedding_bag``; at B=512 the wrapper's
+              host-time split, the forward's device kernels and its host
+              time issued without a sync; the forward's time against its
+              f32 FLOP bound;
 6b. recsys retrieval — the item catalog (field 0's 1,000,000 rows)
               sparsified to its top-16 |value| coordinates in a Sinnamon
               index (n=64, m=8, h=1, f32 raw values), 256 users'
@@ -360,7 +368,7 @@ def main(argv=None) -> int:
     rerank_gen.manual_seed(args.seed + 1)
     rerank_against_twin(csr_rerank, rerank_gen, dev, idx, val, slots, Bc, Lc)
     del idx, val, got, want
-    kernel_d_against_twin(gen, dev)
+    kernel_d_against_twin(gen, dev, args.seed)
     torch.cuda.empty_cache()
 
     # -- 4. main path at full width -------------------------------------------
@@ -870,10 +878,13 @@ def eval_path(doc_idx, doc_val, q_idx, q_val, seed, dev) -> None:
     log(f"[4c eval] done in {time.perf_counter() - t0:.1f}s")
 
 
-def kernel_d_against_twin(gen, dev) -> None:
-    """Phase 3, kernel D: bit-equal to its twin for f32 and bf16 tables,
-    D in {18, 64} (scalar and 16-byte loads), F in {1, 4, 40}, 20% pads and
-    signed weights, and ``mean`` through ``ops.embed_bag``."""
+def kernel_d_against_twin(gen, dev, seed: int) -> None:
+    """Phase 3, kernel D: the flat form bit-equal to its twin for f32 and
+    bf16 tables, D in {18, 64} (scalar and 16-byte loads), F in {1, 4, 40},
+    20% pads and signed weights, and ``mean`` through ``ops.embed_bag``;
+    the stacked form (26 fields, hot 1 and 4, weights and none, every
+    launch variant) bit-equal to its twin, written into rows 1.. of a
+    [B, 27, D] buffer whose row 0 it leaves as it was."""
     import torch
 
     from repro_torch.kernels import embed_bag, ops
@@ -903,6 +914,38 @@ def kernel_d_against_twin(gen, dev) -> None:
     log(f"[3 kernels] embed_bag: {cases} cases bit-equal to the twin "
         f"({bags} bags, V={V}; f32 and bf16 tables, D in (18, 64), F in "
         f"(1, 4, 40), 20% pads, signed weights; sum and mean)")
+    # its own generator: the main path's corpus and queries stay the draws
+    # of earlier runs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    Fs, Bs, cases = 26, 512, 0
+    for cell in (torch.float32, torch.bfloat16):
+        tables = torch.randn((Fs, V, 64), generator=gen,
+                             device=dev).to(cell)
+        for hot in (1, 4):
+            idx = torch.randint(0, V, (Bs, Fs, hot), generator=gen,
+                                device=dev, dtype=torch.int32)
+            pad = torch.rand((Bs, Fs, hot), generator=gen, device=dev) < 0.2
+            idx = torch.where(pad, -1, idx)
+            w = torch.randn((Bs, Fs, hot), generator=gen, device=dev)
+            for weights in (w, None):
+                want = embed_bag.stacked_embed_bag_plain(tables, idx, weights)
+                for variant in embed_bag.VARIANTS:
+                    vecs = torch.full((Bs, Fs + 1, 64), torch.nan,
+                                      device=dev)
+                    embed_bag.embed_bag(tables, idx, weights,
+                                        out=vecs[:, 1:], variant=variant)
+                    torch.cuda.synchronize()
+                    if not torch.equal(vecs[:, 1:].contiguous().view(
+                            torch.int32), want.view(torch.int32)) or \
+                            not torch.isnan(vecs[:, 0]).all():
+                        raise AssertionError(f"stacked kernel D != twin for "
+                                             f"{cell} hot={hot} {variant}")
+                    cases += 1
+    log(f"[3 kernels] embed_bag stacked form: {cases} cases bit-equal to "
+        f"the twin ({Bs} x {Fs} bags into a [{Bs}, {Fs + 1}, 64] buffer, "
+        f"row 0 untouched; f32 and bf16 tables, hot 1 and 4, weights and "
+        f"none, variants {', '.join(embed_bag.VARIANTS)})")
 
 
 def dlrm_flops(cfg, B: int) -> int:
@@ -1058,18 +1101,29 @@ def recsys_path(seed: int, dev, card: str):
                                 "serve_bulk": B_bulk}[name],
                       "p50_ms": p["p50"], "p99_ms": p["p99"],
                       "requests": p["batches"], "samples_per_s": p["qps"],
-                      **{k: p[k] for k in ("forward_ms", "flop_bound_ms")
-                         if k in p}}
+                      **{k: p[k] for k in ("forward_ms", "flop_bound_ms",
+                                           "forward_kernels",
+                                           "forward_host_ms") if k in p}}
     return d_row, line
 
 
 def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
-    """Kernel D at both serving shapes (CUDA events per call, device time
-    alone, host time per call): against its twin, ``F.embedding_bag`` on
-    the same operands (the yardstick; the port never calls it) and its
-    byte bound; and the DLRM forward against its f32 FLOP bound.  At B=512 each launch takes the next of 32 batches' indices
-    (109 MB of rows, more than the 50 MB L2), so rows come from HBM, as
-    they do for a stream of requests."""
+    """Kernel D at both serving shapes: CUDA events per call, device time
+    alone (torch.profiler) and host time per call.
+
+    The stacked form as the forward launches it (the request's indices as
+    they are, the bags written into rows 1.. of a [B, 27, D] buffer) beside
+    the route it replaced on the same batches (``stacked_bag_operands``,
+    the flat form with a ``torch.ones`` weight tensor, ``torch.cat`` after
+    x0), in each launch variant, against its twin and its byte bound.  The
+    flat form (field-offset indices into the [26,000,000, 64] table, signed
+    0/1 weights) against its twin, ``F.embedding_bag`` on the same operands
+    (the yardstick; the port never calls it) and its byte bound.  At B=512
+    also the wrapper's host-time split, and the forward's device kernels
+    (torch.profiler) and host time issued without a sync.  The DLRM forward
+    against its f32 FLOP bound.  At B=512 each launch takes the next of 32
+    batches' indices (109 MB of rows, more than the 50 MB L2), so rows come
+    from HBM, as they do for a stream of requests."""
     import itertools
 
     import torch
@@ -1079,76 +1133,173 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
     from repro_torch.kernels import embed_bag
     from repro_torch.models import recsys
 
-    D = cfg.embed_dim
-    elt = model.tables.element_size()
+    tables = model.tables
+    nF, _, D = tables.shape
+    elt = tables.element_size()
+    dev = tables.device
     out, fwd, errs = {}, {}, []
     for name, n_sets, reps in (("serve_p99", 32, 256), ("serve_bulk", 1, 10)):
         B = dlrm_rm2.SHAPES[name]["batch"]
         sets = []
         for i in range(n_sets):
             b = on_card(host_batch(5000 + i, B))
-            flat, fidx = recsys.stacked_bag_operands(model.tables, b.sparse)
+            flat, fidx = recsys.stacked_bag_operands(tables, b.sparse)
             valid = fidx >= 0
-            sets.append((b, flat, fidx, valid.to(torch.float32),
-                         torch.where(valid, fidx, 0).long()))
+            sets.append(dict(b=b, flat=flat, fidx=fidx,
+                             w=valid.to(torch.float32),
+                             safe=torch.where(valid, fidx, 0).long()))
         cyc = itertools.cycle(sets)
-        kernel = lambda: embed_bag.embed_bag(*next(cyc)[1:4])
-        library = lambda: (lambda s: Fn.embedding_bag(
-            s[4], s[1], mode="sum", per_sample_weights=s[3]))(next(cyc))
-        k_ms = cuda_ms(kernel, reps)
-        p_ms = cuda_ms(lambda: embed_bag.embed_bag_plain(*next(cyc)[1:4]),
-                       max(2, reps // 32))
-        l_ms = cuda_ms(library, reps)
-        k_host, l_host = host_ms(kernel, reps), host_ms(library, reps)
-        b, flat, fidx, w, safe = sets[0]
-        got = embed_bag.embed_bag(flat, fidx, w)
-        want = embed_bag.embed_bag_plain(flat, fidx, w)
-        lib = Fn.embedding_bag(safe, flat, mode="sum", per_sample_weights=w)
+        # the twins first: the interaction buffers below are not yet held
+        r = {"B": B, "bags": B * nF}
+        r["plain_ms"] = cuda_ms(lambda: embed_bag.stacked_embed_bag_plain(
+            tables, next(cyc)["b"].sparse), max(2, reps // 32))
+        r["flat_plain_ms"] = cuda_ms(lambda: embed_bag.embed_bag_plain(
+            *(lambda s: (s["flat"], s["fidx"], s["w"]))(next(cyc))),
+            max(2, reps // 32))
+        for s in sets:
+            s["vecs"] = model.interaction_input(s["b"].dense, s["b"].sparse)
+            s["out"], s["x0"] = s["vecs"][:, 1:], s["vecs"][:, 0].contiguous()
+
+        def stacked(variant=None):
+            s = next(cyc)
+            return embed_bag.embed_bag(tables, s["b"].sparse, out=s["out"],
+                                       variant=variant)
+
+        def old_route(s=None):
+            s = s or next(cyc)
+            flat, fidx = recsys.stacked_bag_operands(tables, s["b"].sparse)
+            ones = torch.ones(fidx.shape, dtype=torch.float32, device=dev)
+            emb = embed_bag.embed_bag(flat, fidx, ones).view(B, nF, D)
+            return torch.cat([s["x0"][:, None, :], emb], dim=1)
+
+        def flat_kernel():
+            s = next(cyc)
+            return embed_bag.embed_bag(s["flat"], s["fidx"], s["w"])
+
+        def library():
+            s = next(cyc)
+            return Fn.embedding_bag(s["safe"], s["flat"], mode="sum",
+                                    per_sample_weights=s["w"])
+
+        for key, fn in (("ms", stacked), ("old_route_ms", old_route),
+                        ("flat_ms", flat_kernel), ("library_ms", library)):
+            r[key] = cuda_ms(fn, reps)
+        for v in embed_bag.VARIANTS:
+            r[f"variant_{v}_ms"] = cuda_ms(lambda: stacked(v), reps)
+        r["variant_default"] = embed_bag.DEFAULT_VARIANT
+        for key, fn in (("host_ms", stacked), ("old_route_host_ms", old_route),
+                        ("flat_host_ms", flat_kernel),
+                        ("library_host_ms", library)):
+            r[key] = host_ms(fn, reps)
+        # device time alone (the CUDA-event time includes any host gap
+        # between launches): kernel D's kernel per launch the profiler
+        # recorded; every kernel of the old route and the library per call
+        for key, fn in (("device_ms", stacked), ("flat_device_ms",
+                                                 flat_kernel),
+                        *((f"variant_{v}_device_ms",
+                           lambda v=v: stacked(v))
+                          for v in embed_bag.VARIANTS)):
+            r[key], recorded = launch_device_ms(fn, reps, "embed_bag_kernel")
+            r[key.replace("device_ms", "records")] = recorded
+        for key, fn in (("old_route_device_ms", old_route),
+                        ("library_device_ms", library)):
+            _, by_name = device_profile(fn, reps)
+            r[key] = sum(by_name.values()) or None
+        s = sets[0]
+        if name == "serve_p99":
+            r["split"] = wrapper_split(tables, s["b"].sparse, s["out"], B)
+
+        sparse, fidx, w = s["b"].sparse, s["fidx"], s["w"]
+        want = embed_bag.stacked_embed_bag_plain(tables, sparse)
+        for v in embed_bag.VARIANTS:
+            got = embed_bag.embed_bag(tables, sparse, out=s["out"],
+                                      variant=v)
+            torch.cuda.synchronize()
+            if not torch.equal(got.contiguous().view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"stacked kernel D ({v}) != twin at "
+                                     f"{name}")
+        del got, want
+        if not torch.equal(old_route(s).view(torch.int32),
+                           s["vecs"].view(torch.int32)):
+            raise AssertionError(f"old bag route != stacked form at {name}")
+        for t in sets:                  # the buffers are not needed below
+            del t["vecs"], t["out"], t["x0"]
+        got = embed_bag.embed_bag(s["flat"], fidx, w)
+        flat_want = embed_bag.embed_bag_plain(s["flat"], fidx, w)
+        lib = Fn.embedding_bag(s["safe"], s["flat"], mode="sum",
+                               per_sample_weights=w)
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"kernel D != twin at {name}")
-        errs.append(finite_max_err(got, want))
-        lib_err = finite_max_err(got, lib)
+        if not torch.equal(got.view(torch.int32), flat_want.view(torch.int32)):
+            raise AssertionError(f"kernel D (flat) != twin at {name}")
+        errs.append(finite_max_err(got, flat_want))
+        r["library_err"] = finite_max_err(got, lib)
+        del got, flat_want, lib
         # the function reads each distinct row the batch references once;
         # the per-slot count (a row read at every valid slot) is kept beside
         n_valid = int((fidx >= 0).sum())
         n_rows = torch.unique(fidx[fidx >= 0]).numel()
-        io_bytes = fidx.numel() * 8 + fidx.shape[0] * D * 4
-        nbytes = n_rows * D * elt + io_bytes
+        out_bytes = B * nF * D * 4
         n_ops = 2 * n_valid * D
-        bound = max(nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
-        bound_per_slot = max((n_valid * D * elt + io_bytes) / HBM_BYTES_PER_S,
-                             n_ops / F32_OPS_PER_S) * 1e3
-        # device time alone (the CUDA-event time includes any host gap
-        # between launches): kernel D's kernel, every kernel of the library
-        _, by_name = device_profile(kernel, reps)
-        dev_ms = sum(v for k, v in by_name.items()
-                     if "embed_bag_kernel" in k) or None
-        _, by_name = device_profile(library, reps)
-        lib_dev_ms = sum(by_name.values()) or None
-        out[name] = dict(B=B, bags=fidx.shape[0], ms=k_ms, device_ms=dev_ms,
-                         plain_ms=p_ms, library_ms=l_ms, host_ms=k_host,
-                         library_host_ms=l_host,
-                         library_device_ms=lib_dev_ms, bound_ms=bound,
-                         bound_ms_per_slot=bound_per_slot, bytes=nbytes,
-                         rows=n_rows,
-                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                         >= n_ops / F32_OPS_PER_S else "operations",
-                         library_err=lib_err)
+        for key, io_bytes in (("", sparse.numel() * 4 + out_bytes),
+                              ("flat_", fidx.numel() * 8 + out_bytes)):
+            nbytes = n_rows * D * elt + io_bytes
+            r[f"{key}bytes"] = nbytes
+            r[f"{key}bound_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                      n_ops / F32_OPS_PER_S) * 1e3
+            r[f"{key}bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S \
+                >= n_ops / F32_OPS_PER_S else "operations"
+            r[f"{key}bound_ms_per_slot"] = max(
+                (n_valid * D * elt + io_bytes) / HBM_BYTES_PER_S,
+                n_ops / F32_OPS_PER_S) * 1e3
+        r.update(rows=n_rows, valid_slots=n_valid)
+        b = s["b"]
         f_ms = cuda_ms(lambda: recsys.score(model, b, cfg), max(3, reps // 4))
         fwd[name] = {"forward_ms": f_ms, "flop_bound_ms":
                      dlrm_flops(cfg, B) / F32_OPS_PER_S * 1e3}
+        if name == "serve_p99":
+            r["forward_kernels"], names = device_kernels(
+                lambda: recsys.score(model, b, cfg), 200)
+            r["forward_host_ms"] = host_ms(
+                lambda: recsys.score(model, b, cfg), reps)
+            fwd[name].update(forward_kernels=r["forward_kernels"],
+                             forward_host_ms=r["forward_host_ms"])
+        out[name] = r
         prof = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"
-        log(f"[6a recsys]   embed_bag {name} (B={B}, {fidx.shape[0]} bags "
-            f"of {fidx.shape[1]}, {n_valid} valid slots on {n_rows} distinct "
-            f"rows) on {card}: {k_ms:.4f} ms, "
-            f"device alone {prof(dev_ms)}, host {k_host:.4f} ms per call "
-            f"(twin {p_ms:.4f} ms; F.embedding_bag {l_ms:.4f} ms, device "
-            f"alone {prof(lib_dev_ms)}, host {l_host:.4f} ms; bound "
-            f"{bound:.4f} ms = {nbytes} B, {bound_per_slot:.4f} ms reading a "
-            f"row per slot; "
-            f"library max abs diff {lib_err:.3g})")
-        del sets, got, want, lib
+        log(f"[6a recsys]   embed_bag {name} (B={B}, {B * nF} bags of "
+            f"{sparse.shape[2]}, {n_valid} valid slots on {n_rows} distinct "
+            f"rows) on {card}: stacked form {r['ms']:.4f} ms, device alone "
+            f"{prof(r['device_ms'])} ({r['records']:.2f} launches recorded "
+            f"a call), host {r['host_ms']:.4f} ms per call "
+            f"(bound {r['bound_ms']:.4f} ms = {r['bytes']} B; twin "
+            f"{r['plain_ms']:.4f} ms); variants "
+            + ", ".join(f"{v} {r[f'variant_{v}_ms']:.4f} ms (device "
+                        f"{prof(r[f'variant_{v}_device_ms'])})"
+                        for v in embed_bag.VARIANTS)
+            + f"; the old route (operands + flat + ones + cat) "
+            f"{r['old_route_ms']:.4f} ms, device alone "
+            f"{prof(r['old_route_device_ms'])}, host "
+            f"{r['old_route_host_ms']:.4f} ms")
+        log(f"[6a recsys]   embed_bag {name} flat form: {r['flat_ms']:.4f} "
+            f"ms, device alone {prof(r['flat_device_ms'])}, host "
+            f"{r['flat_host_ms']:.4f} ms per call (twin "
+            f"{r['flat_plain_ms']:.4f} ms; F.embedding_bag "
+            f"{r['library_ms']:.4f} ms, device alone "
+            f"{prof(r['library_device_ms'])}, host "
+            f"{r['library_host_ms']:.4f} ms; bound {r['flat_bound_ms']:.4f} "
+            f"ms = {r['flat_bytes']} B, {r['flat_bound_ms_per_slot']:.4f} ms "
+            f"reading a row per slot; library max abs diff "
+            f"{r['library_err']:.3g})")
+        if name == "serve_p99":
+            log(f"[6a recsys]   embed_bag wrapper host split at B={B} (us "
+                f"per call): " + ", ".join(f"{k} {v * 1e3:.2f}"
+                                          for k, v in r["split"].items()))
+            log(f"[6a recsys]   forward at B={B} (features on the card): "
+                f"{r['forward_kernels']:.2f} device kernels per forward, "
+                f"host {r['forward_host_ms']:.4f} ms per forward issued "
+                f"without a sync; kernels per forward: "
+                + "; ".join(f"{k} x{n:.2f}" for k, n in names.items()))
+        del sets, s
         torch.cuda.empty_cache()
     bulk, p99 = out["serve_bulk"], out["serve_p99"]
     row = {"name": "embed_bag", "route": "cuda",
@@ -1158,23 +1309,106 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
            "ms": bulk["ms"], "plain_ms": bulk["plain_ms"],
            "bound_ms": bulk["bound_ms"], "bound_by": bulk["bound_by"],
            "library_ms": bulk["library_ms"],
-           "bound_ms_per_slot": bulk["bound_ms_per_slot"],
-           "shape": f"B={bulk['B']} x {cfg.n_sparse} bags of "
-                    f"{cfg.multi_hot}, D={D}, table "
-                    f"[{cfg.n_sparse * cfg.vocab_per_field}, {D}]",
-           "device_ms": bulk["device_ms"],
-           "library_device_ms": bulk["library_device_ms"],
-           "host_ms": bulk["host_ms"],
-           "library_host_ms": bulk["library_host_ms"],
-           "ms_b512": p99["ms"], "device_ms_b512": p99["device_ms"],
-           "host_ms_b512": p99["host_ms"],
-           "library_host_ms_b512": p99["library_host_ms"],
-           "plain_ms_b512": p99["plain_ms"],
-           "library_device_ms_b512": p99["library_device_ms"],
-           "bound_ms_b512": p99["bound_ms"],
-           "bound_ms_per_slot_b512": p99["bound_ms_per_slot"],
-           "library_ms_b512": p99["library_ms"]}
+           "shape": f"stacked: B={bulk['B']} x {nF} bags of "
+                    f"{cfg.multi_hot}, D={D}, tables [{nF}, "
+                    f"{cfg.vocab_per_field}, {D}], into rows 1.. of "
+                    f"[B, {nF + 1}, {D}]"}
+    for tag, r in (("", bulk), ("_b512", p99)):
+        for key in ("device_ms", "host_ms", "old_route_ms",
+                    "old_route_device_ms", "old_route_host_ms",
+                    "bound_ms_per_slot", "flat_ms", "flat_device_ms",
+                    "flat_host_ms", "flat_plain_ms", "flat_bound_ms",
+                    "library_device_ms", "library_host_ms",
+                    *(f"variant_{v}_{k}" for v in embed_bag.VARIANTS
+                      for k in ("ms", "device_ms"))):
+            row[key + tag] = r[key]
+        if tag:
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                row[key + tag] = r[key]
+    row.update(host_split_b512=p99["split"],
+               forward_kernels_b512=p99["forward_kernels"],
+               forward_host_ms_b512=p99["forward_host_ms"])
     return row, fwd
+
+
+def wrapper_split(tables, sparse, out, B: int, reps: int = 2000) -> dict:
+    """Host ms per call of each step of kernel D's wrapper on the stacked
+    form, timed alone with the host clock over ``reps`` calls, the whole
+    call beside them: the layout key and its lookup, the pointers, the
+    stream, the ctypes call (which launches the kernel); the checks and the
+    plan, which run once per layout; and the steps the wrapper before this
+    design took on every call that this one does not (a ``torch.ones``
+    weight tensor, the output's ``torch.empty``,
+    ``torch.cuda.current_stream(dev).cuda_stream``, ``_build.sm_count``)."""
+    import torch
+
+    from repro_torch.kernels import _build, embed_bag
+
+    dev = tables.device
+    key = embed_bag.layout_key(tables, sparse, None, out, None)
+    fn = embed_bag._launcher()
+    addr = embed_bag._new_launch(tables, sparse, out, None)[0]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ptrs = (tables.data_ptr(), sparse.data_ptr(), None, out.data_ptr())
+    steps = {
+        "layout_key": lambda: embed_bag.layout_key(tables, sparse, None, out,
+                                                   None),
+        "lookup": lambda: embed_bag._LAUNCHES.get(key),
+        "data_ptrs": lambda: (tables.data_ptr(), sparse.data_ptr(),
+                              out.data_ptr()),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "ctypes_launch": lambda: fn(addr, *ptrs, stream),
+        "whole_call": lambda: embed_bag.embed_bag(tables, sparse, out=out),
+        "once_checks": lambda: embed_bag.check_operands(tables, sparse, None,
+                                                        out),
+        "once_plan": lambda: embed_bag._new_launch(tables, sparse, out, None),
+        "gone_ones": lambda: torch.ones(sparse.shape, dtype=torch.float32,
+                                        device=dev),
+        "gone_empty": lambda: torch.empty((B * tables.shape[0],
+                                           tables.shape[-1]),
+                                          dtype=torch.float32, device=dev),
+        "gone_current_stream": lambda:
+            torch.cuda.current_stream(dev).cuda_stream,
+        "gone_sm_count": lambda: _build.sm_count(dev),
+    }
+    return {k: host_ms(f, reps) for k, f in steps.items()}
+
+
+def device_kernels(fn, calls: int):
+    """(device kernels per call of ``fn`` under torch.profiler, {name: per
+    call}); copies and memsets not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.key[:60]: e.count / calls for e in prof.key_averages()
+             if e.self_device_time_total > 0
+             and not e.key.startswith(("Memcpy", "Memset"))}
+    return sum(names.values()), names
+
+
+def launch_device_ms(fn, calls: int, name: str):
+    """(device ms per launch of the kernels whose name holds ``name``,
+    launches recorded per call) under torch.profiler: the mean over the
+    launches the profiler recorded, so that a dropped record does not lower
+    it; (None, 0) when it recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    n = sum(e.count for e in hits)
+    if not n:
+        return None, 0
+    return sum(e.self_device_time_total for e in hits) / 1e3 / n, n / calls
 
 
 def recsys_retrieval(model, cfg, host_batch, on_card, seed, dev) -> dict:

@@ -17,7 +17,7 @@ process-wide with the ``REPRO_SCORE_BACKEND`` environment variable.  A
 with a dense scorer.
 
 :func:`embed_bag` (sum | mean) puts kernel D under the recsys models'
-embedding bags.
+embedding bags, flat or with DLRM's stacked field tables.
 
 Each function dispatches on the device of its tensors: the CUDA kernel for
 CUDA tensors, its plain twin for CPU tensors (``use_kernel`` overrides:
@@ -190,19 +190,23 @@ def exact_scores_all(store, q_dense: Tensor, *,
 
 def embed_bag(table: Tensor, indices: Tensor,
               weights: Optional[Tensor] = None, *, mode: str = "sum",
+              out: Optional[Tensor] = None,
               use_kernel: Optional[bool] = None) -> Tensor:
-    """EmbeddingBag(sum|mean) on kernel D: f32[B, D] from ``table`` [V, D]
-    and ``indices`` int32[B, F] (pad -1).  ``weights`` None means ones;
-    ``mean`` divides the weights by each bag's count of valid slots (at
-    least 1), as the reference folds it in."""
-    B, F = indices.shape
-    if weights is None:
-        weights = torch.ones((B, F), dtype=torch.float32,
-                             device=indices.device)
+    """EmbeddingBag(sum|mean) on kernel D, one launch: f32[B, D] from
+    ``table`` [V, D] and ``indices`` int32[B, hot], or f32[B, F, D] from
+    stacked tables [F, V, D] and ``indices`` int32[B, F, hot] (pad -1),
+    written into ``out`` when given.  ``weights`` None means ones, which
+    the kernel applies itself; ``mean`` divides the weights by each bag's
+    count of valid slots (at least 1), as the reference folds it in."""
     if mode == "mean":
         counts = (indices >= 0).sum(-1, keepdim=True).clamp_min(1)
+        if weights is None:
+            weights = torch.ones(indices.shape, dtype=torch.float32,
+                                 device=indices.device)
         weights = weights / counts
     elif mode != "sum":
         raise ValueError(mode)
-    return _bag.embed_bag(table, indices, weights.contiguous(),
+    if weights is not None:
+        weights = weights.contiguous()
+    return _bag.embed_bag(table, indices, weights, out=out,
                           use_kernel=use_kernel)

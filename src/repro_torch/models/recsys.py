@@ -5,8 +5,10 @@ forward: ``score`` (the CTR logit), ``user_repr`` / ``item_embeddings``
 (the MIPS retrieval factorisation) and ``retrieval_scores``, plus ``loss``
 on the same forward.  The 26 field lookups are one launch of kernel D
 (:func:`stacked_embedding_bag` → ``kernels.ops.embed_bag``), which computes
-what the reference's jnp ``embedding_bag`` computes; the MLPs and the
-interaction stay on ``torch.matmul``, as the reference leaves them to XLA.
+what the reference's jnp ``embedding_bag`` computes, reads the request's
+indices as they are and writes each bag straight into the [B, F+1, D]
+buffer the interaction reads; the MLPs and the interaction stay on
+``torch.matmul``, as the reference leaves them to XLA.
 
 The parameters do not require gradients: training (and its gradient
 through the bags) is a later slice, as are DIN, SASRec and MIND, which
@@ -103,15 +105,28 @@ def stacked_bag_operands(tables: Tensor, idx: Tensor):
 
 
 def stacked_embedding_bag(tables: Tensor, idx: Tensor, *,
+                          out: Optional[Tensor] = None,
                           use_kernel: Optional[bool] = None) -> Tensor:
     """Sum bags of every field at once: tables [F, V, D] (contiguous),
-    idx [B, F, hot] (pad -1) → [B, F, D] in the tables' dtype, in one
-    launch of kernel D over B·F bags.  Takes the place of the reference's
-    ``jax.vmap(embedding_bag, (0, 1), 1)``."""
-    flat, fidx = stacked_bag_operands(tables, idx)
-    out = ops.embed_bag(flat, fidx, use_kernel=use_kernel)
-    return out.view(idx.shape[0], tables.shape[0],
-                    tables.shape[2]).to(tables.dtype)
+    idx [B, F, hot] (pad -1) → [B, F, D] in the tables' dtype, written into
+    ``out`` (a [B, F, D] view in that dtype) when given.  Takes the place
+    of the reference's ``jax.vmap(embedding_bag, (0, 1), 1)``.
+
+    ``use_kernel`` None or True: one launch of kernel D's stacked form over
+    B·F bags, which reads ``idx`` as it is and writes f32 bags straight
+    into ``out`` (bf16 tables: through an f32 tensor); on CPU tensors its
+    twin.  False: the flat twin over :func:`stacked_bag_operands`.
+    """
+    if use_kernel is False:
+        flat, fidx = stacked_bag_operands(tables, idx)
+        bags = ops.embed_bag(flat, fidx, use_kernel=False).view(
+            idx.shape[0], tables.shape[0], tables.shape[2]).to(tables.dtype)
+        return bags if out is None else out.copy_(bags)
+    idx = idx.to(torch.int32).contiguous()
+    if out is not None and out.dtype == torch.float32:
+        return ops.embed_bag(tables, idx, out=out, use_kernel=use_kernel)
+    bags = ops.embed_bag(tables, idx, use_kernel=use_kernel)
+    return bags.to(tables.dtype) if out is None else out.copy_(bags)
 
 
 # ---------------------------------------------------------------------------
@@ -124,12 +139,17 @@ def _linears(dims, dtype, device) -> nn.ModuleList:
         for a, b in zip(dims[:-1], dims[1:]))
 
 
-def _mlp(layers: nn.ModuleList, x: Tensor, final_act: bool = False):
+def _mlp(layers: nn.ModuleList, x: Tensor, final_act: bool = False,
+         out: Optional[Tensor] = None):
+    """The MLP; with ``out``, the final ReLU writes into it (``relu`` is
+    ``clamp_min(·, 0)`` in torch, so the bits are the same)."""
     n = len(layers)
     for i, lin in enumerate(layers):
         x = lin(x)
-        if i < n - 1 or final_act:
+        if i < n - 1 or (final_act and out is None):
             x = torch.relu(x)
+        elif final_act:
+            x = torch.clamp_min(x, 0, out=out)
     return x
 
 
@@ -187,23 +207,43 @@ class DLRM(nn.Module):
                                          device=dev) / math.sqrt(in_f))
             lin.bias.zero_()
 
+    def interaction_input(self, dense: Tensor, sparse: Tensor, *,
+                          use_kernel: Optional[bool] = None) -> Tensor:
+        """vecs [B, n_sparse + 1, D]: the bottom MLP's output x0 in row 0,
+        the field bags in rows 1.. .  Kernel path (``use_kernel`` None or
+        True): the buffer is allocated once, the bottom MLP's last ReLU
+        writes x0 into row 0 and kernel D the bags into the rest, so
+        nothing is concatenated.  ``use_kernel=False``: the twin program,
+        x0 and the twin's bags concatenated."""
+        tables = self.tables
+        dense = dense.to(tables.dtype)
+        if use_kernel is False:
+            x0 = _mlp(self.bot, dense, final_act=True)
+            emb = stacked_embedding_bag(tables, sparse, use_kernel=False)
+            return torch.cat([x0[:, None, :], emb], dim=1)
+        F, _, D = tables.shape
+        vecs = torch.empty((dense.shape[0], F + 1, D), dtype=tables.dtype,
+                           device=tables.device)
+        _mlp(self.bot, dense, final_act=True, out=vecs[:, 0])
+        stacked_embedding_bag(tables, sparse, out=vecs[:, 1:],
+                              use_kernel=use_kernel)
+        return vecs
+
     def features(self, dense: Tensor, sparse: Tensor, *,
                  use_kernel: Optional[bool] = None):
-        """(x0 [B, D] bottom-MLP output, emb [B, n_sparse, D] field bags)."""
-        x0 = _mlp(self.bot, dense.to(self.tables.dtype), final_act=True)
-        emb = stacked_embedding_bag(self.tables, sparse,
-                                    use_kernel=use_kernel)
-        return x0, emb
+        """(x0 [B, D] bottom-MLP output, emb [B, n_sparse, D] field bags):
+        views of :meth:`interaction_input`'s rows."""
+        vecs = self.interaction_input(dense, sparse, use_kernel=use_kernel)
+        return vecs[:, 0], vecs[:, 1:]
 
     def forward(self, dense: Tensor, sparse: Tensor, *,
                 use_kernel: Optional[bool] = None) -> Tensor:
         """CTR logits [B]: the top MLP over x0 and the strict upper
         triangle (row-major) of the Gram matrix of [x0; emb]."""
-        x0, emb = self.features(dense, sparse, use_kernel=use_kernel)
-        vecs = torch.cat([x0[:, None, :], emb], dim=1)      # [B, F+1, D]
+        vecs = self.interaction_input(dense, sparse, use_kernel=use_kernel)
         gram = torch.bmm(vecs, vecs.transpose(1, 2))
         inter = gram[:, self.iu, self.ju]                    # [B, F(F+1)/2]
-        return _mlp(self.top, torch.cat([x0, inter], dim=-1))[:, 0]
+        return _mlp(self.top, torch.cat([vecs[:, 0], inter], dim=-1))[:, 0]
 
 
 # ---------------------------------------------------------------------------

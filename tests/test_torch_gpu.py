@@ -366,6 +366,127 @@ def test_dlrm_kernel_path_bit_equal_to_twin_path(cuda):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _stacked_operands(rng, F, V, D, B, hot, dtype, cuda, aligned=True,
+                      weighted=True):
+    """Tables [F, V, D], indices int32[B, F, hot] with 20% pads, weights
+    f32[B, F, hot] (or None) and a [B, F+1, D] buffer whose row 0 holds a
+    sentinel (NaNs of a fixed payload)."""
+    tables, _, _ = _bag_operands(rng, F * V, D, 1, 1, dtype, cuda, aligned)
+    tables = tables.view(F, V, D)
+    idx = rng.integers(0, V, (B, F, hot)).astype(np.int32)
+    idx[rng.random((B, F, hot)) < 0.2] = -1
+    w = rng.normal(0, 1, (B, F, hot)).astype(np.float32)
+    vecs = torch.full((B, F + 1, D), 0, dtype=torch.int32, device=cuda)
+    vecs[:, 0] = 0x7fc0beef
+    return (tables, torch.from_numpy(idx).to(cuda),
+            torch.from_numpy(w).to(cuda) if weighted else None,
+            vecs.view(torch.float32))
+
+
+@pytest.mark.parametrize("cell", ["f32", "bf16"])
+@pytest.mark.parametrize("hot", [1, 4])
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("variant,aligned", [
+    (None, True), ("registers", True), ("ring", True), (None, False),
+    ("registers", False)])
+def test_stacked_embed_bag_bit_equal_to_twin(cuda, cell, hot, weighted,
+                                             variant, aligned):
+    """The stacked form writes each bag into rows 1.. of the [B, F+1, D]
+    buffer, bit-equal to its twin and to the flat twin over the field-offset
+    operands, leaves row 0 as it was, and launches once."""
+    rng = np.random.default_rng(hot * 10 + weighted)
+    tables, idx, w, vecs = _stacked_operands(rng, 5, 700, 64, 3001, hot,
+                                             CELLS[cell], cuda, aligned,
+                                             weighted)
+    assert (tables.data_ptr() % 16 == 0) == aligned
+    plan = embed_bag.launch_plan(tables, vecs[:, 1:], variant)
+    assert plan.vec == (16 // tables.element_size() if aligned else 1)
+    sentinel = vecs[:, 0].clone()
+    before = embed_bag.embed_bag.launches
+    got = embed_bag.embed_bag(tables, idx, w, out=vecs[:, 1:],
+                              variant=variant)
+    assert embed_bag.embed_bag.launches == before + 1
+    assert got.data_ptr() == vecs[:, 1:].data_ptr()
+    want = embed_bag.stacked_embed_bag_plain(tables, idx, w)
+    F, V, D = tables.shape
+    offs = torch.arange(F, device=cuda, dtype=torch.int32)[None, :, None] * V
+    flat_idx = torch.where(idx >= 0, idx + offs, -1).view(-1, hot)
+    flat = embed_bag.embed_bag_plain(tables.view(F * V, D), flat_idx,
+                                     None if w is None else w.view(-1, hot))
+    torch.cuda.synchronize()
+    bits = vecs[:, 1:].contiguous().view(torch.int32)
+    assert torch.equal(bits, want.view(torch.int32))
+    assert torch.equal(bits, flat.view(-1, F, D).view(torch.int32))
+    assert torch.equal(vecs[:, 0].view(torch.int32),
+                       sentinel.view(torch.int32))
+
+
+def test_stacked_embed_bag_ring_needs_aligned_rows(cuda):
+    rng = np.random.default_rng(3)
+    tables, idx, w, vecs = _stacked_operands(rng, 3, 50, 64, 40, 1,
+                                             torch.float32, cuda, False)
+    with pytest.raises(ValueError):
+        embed_bag.embed_bag(tables, idx, w, out=vecs[:, 1:], variant="ring")
+
+
+@pytest.mark.parametrize("B", [1, 2, 20, 512])
+def test_stacked_embed_bag_every_grid(cuda, B):
+    """26 fields: 26 bags (less than one 32-bag chunk), 52 and 520 (ragged
+    last chunks) and the serve_p99 shape's 13,312, where blocks shrink to
+    spread over the SMs: bit-equal to the twin."""
+    rng = np.random.default_rng(B)
+    tables, idx, _, vecs = _stacked_operands(rng, 26, 100, 64, B, 1,
+                                             torch.float32, cuda,
+                                             weighted=False)
+    got = embed_bag.embed_bag(tables, idx, out=vecs[:, 1:])
+    want = embed_bag.stacked_embed_bag_plain(tables, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.contiguous().view(torch.int32),
+                       want.view(torch.int32))
+
+
+def test_stacked_embed_bag_rejects_bad_operands(cuda):
+    tables = torch.zeros((3, 10, 8), device=cuda)
+    idx = torch.zeros((4, 3, 2), dtype=torch.int32, device=cuda)
+    vecs = torch.zeros((4, 4, 8), device=cuda)
+    for args, out in (((tables, idx.long()), None),          # int64 indices
+                      ((tables, idx[:, :2].contiguous()), None),   # F != 3
+                      ((tables.transpose(1, 2), idx), None),  # not contiguous
+                      ((tables, idx.cpu()), None),            # mixed devices
+                      ((tables, idx), vecs[:3, 1:]),          # out too small
+                      ((tables, idx), vecs[:, 1:, ::2]),      # column stride
+                      ((tables, idx), vecs.view(-1).as_strided(
+                          (4, 3, 8), (8, 4, 1)))):            # bags overlap
+        with pytest.raises(ValueError):
+            embed_bag.embed_bag(*args, out=out)
+
+
+def test_dlrm_kernel_path_bit_equal_to_twin_path_multi_hot(cuda):
+    """Smoke width with 4 lookups a field: logits and the [B, F+1, D]
+    interaction input bit-equal to the twin program's, one launch."""
+    import dataclasses
+
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import loaders
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import recsys
+    cfg = dataclasses.replace(dlrm_rm2.smoke_config(), multi_hot=4)
+    model = recsys.DLRM(cfg, torch.Generator(device=cuda).manual_seed(2),
+                        device=cuda)
+    batch = loaders.recsys_batch(0, 3, 300, cfg)
+    reset_launch_counts()
+    got = recsys.score(model, batch, cfg)
+    vecs = model.interaction_input(batch.dense, batch.sparse)
+    assert launch_counts()["embed_bag"] == 2
+    want = recsys.score(model, batch, cfg, use_kernel=False)
+    vecs_p = model.interaction_input(batch.dense, batch.sparse,
+                                     use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(vecs.view(torch.int32), vecs_p.view(torch.int32))
+
+
 # -- kernel B's rerank form: csr_rerank_topk ---------------------------------
 
 def _rerank_operands(rng, B, Kp, C, P, n, vdt, cuda, Lq=64, integer=False,

@@ -6,6 +6,15 @@
   CPU backend may contract a multiply-add into an FMA).
 * ``stacked_embedding_bag`` against ``jax.vmap(recsys.embedding_bag)``:
   bit-equal at hot = 1 (one row plus nothing), rtol = 1e-6 at hot = 4.
+* The kernel-path program of the DLRM forward (one stacked call into
+  rows 1.. of a [B, F+1, D] buffer, x0 written into row 0 by the bottom
+  MLP's last ReLU), run through the stacked form's twin: buffer, bags and
+  logits bit-equal to the twin program (``stacked_bag_operands``, the flat
+  twin, ``torch.cat``); the buffer against the reference's
+  ``jax.vmap(embedding_bag)`` + ``jnp.concatenate`` at hot = 1 and 4:
+  bags rtol = atol = 1e-6 (bit-equal at hot = 1), x0 rtol = atol = 1e-5
+  (f32 matrix products sum in another order).
+* The wrapper's launch plan and its ValueErrors, as plain Python.
 * ``loaders.recsys_batch`` bit-equal; configs and shapes equal.
 * DLRM ``score`` / ``loss`` / ``user_repr`` / ``item_embeddings`` /
   ``retrieval_scores`` from the same parameters: rtol = atol = 1e-5 (f32
@@ -166,6 +175,166 @@ def test_embedding_bag_mean_divides_the_sum(rng):
     assert torch.equal(got[0], torch.zeros(8))
     with pytest.raises(ValueError):
         trs.embedding_bag(table, idx, "max")
+
+
+@pytest.mark.parametrize("hot", [1, 4])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_stacked_form_twin_into_buffer(rng, hot, weighted):
+    """The stacked form's twin with an output view of stride (F+1)·D: the
+    bags land in rows 1.., bit-equal to the flat twin over the field-offset
+    operands (the old program), and row 0 keeps its sentinel."""
+    F, V, D, B = 6, 50, 16, 11
+    tables = torch.from_numpy(rng.normal(0, 1, (F, V, D)).astype(np.float32))
+    idx = rng.integers(0, V, (B, F, hot)).astype(np.int32)
+    idx[rng.random((B, F, hot)) < 0.25] = -1
+    idx = torch.from_numpy(idx)
+    w = torch.from_numpy(rng.normal(0, 1, (B, F, hot)).astype(np.float32)) \
+        if weighted else None
+    vecs = torch.full((B, F + 1, D), -7.0)
+    got = tbag.embed_bag(tables, idx, w, out=vecs[:, 1:])
+    assert got.data_ptr() == vecs[:, 1:].data_ptr()
+    flat, fidx = trs.stacked_bag_operands(tables, idx)
+    ones = torch.ones(fidx.shape, dtype=torch.float32)
+    want = tbag.embed_bag_plain(flat, fidx,
+                                ones if w is None else w.view(-1, hot))
+    assert torch.equal(vecs[:, 1:].reshape(-1, D).view(torch.int32),
+                       want.view(torch.int32))
+    assert torch.equal(vecs[:, 0], torch.full((B, D), -7.0))
+    alone = tbag.embed_bag(tables, idx, w)
+    assert torch.equal(alone.view(torch.int32),
+                       vecs[:, 1:].contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("hot", [1, 4])
+def test_dlrm_kernel_program_matches_twin_program_and_reference(hot):
+    cfg_t = dataclasses.replace(tdlrm.smoke_config(), multi_hot=hot)
+    cfg_j = jrs.RecsysConfig(**dataclasses.asdict(cfg_t))
+    params = jrs.init_params(jax.random.PRNGKey(4), cfg_j)
+    model = convert.recsys_params_from_numpy(
+        jax.tree.map(np.asarray, params), cfg_t, device="cpu")
+    tb = tloaders.recsys_batch(1, 2, 24, cfg_t, device="cpu")
+    jb = jax.tree.map(jnp.asarray, jloaders.recsys_batch(1, 2, 24, cfg_j))
+    vecs = model.interaction_input(tb.dense, tb.sparse)
+    old = model.interaction_input(tb.dense, tb.sparse, use_kernel=False)
+    assert vecs.shape == (24, cfg_t.n_sparse + 1, cfg_t.embed_dim)
+    assert torch.equal(vecs.view(torch.int32), old.view(torch.int32))
+    x0, emb = model.features(tb.dense, tb.sparse)
+    assert emb.data_ptr() == x0.data_ptr() + cfg_t.embed_dim * 4
+    assert torch.equal(trs.score(model, tb, cfg_t).view(torch.int32),
+                       trs.score(model, tb, cfg_t,
+                                 use_kernel=False).view(torch.int32))
+    jx0, jemb = jrs._dlrm_features(params, jb, cfg_j)
+    want = np.asarray(jnp.concatenate([jx0[:, None, :], jemb], axis=1))
+    if hot == 1:
+        np.testing.assert_array_equal(vecs[:, 1:].numpy(), want[:, 1:])
+    else:
+        np.testing.assert_allclose(vecs[:, 1:].numpy(), want[:, 1:],
+                                   rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(vecs[:, 0].numpy(), want[:, 0], rtol=1e-5,
+                               atol=1e-5)
+
+
+def _unaligned(t):
+    """The same values one element past a 16-byte aligned base."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype)
+    base[1:] = t.reshape(-1)
+    return base[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("dtype,D,table_aligned,out_kind,variant,want", [
+    # (kind, vec, group, unroll, stages)
+    (torch.float32, 64, True, "buffer", None, (0, 4, 16, 4, 4)),
+    (torch.bfloat16, 64, True, "buffer", None, (1, 8, 8, 4, 4)),
+    (torch.float32, 64, True, "buffer", "registers", (0, 4, 16, 8, 0)),
+    (torch.bfloat16, 64, True, "buffer", "registers", (1, 8, 8, 8, 0)),
+    (torch.float32, 64, True, "buffer", "ring", (0, 4, 16, 4, 4)),
+    (torch.float32, 64, False, "buffer", None, (0, 1, 32, 4, 0)),
+    (torch.float32, 64, False, "buffer", "registers", (0, 1, 32, 4, 0)),
+    (torch.float32, 18, True, "bags", None, (0, 1, 32, 4, 0)),
+    (torch.bfloat16, 8, True, "bags", None, (1, 8, 1, 4, 4)),
+    (torch.float32, 8, True, "bags", "registers", (0, 4, 2, 8, 0)),
+    (torch.float32, 128, True, "bags", None, (0, 4, 32, 4, 4)),
+    (torch.float32, 256, True, "bags", None, (0, 4, 32, 4, 4)),
+    (torch.float32, 64, True, "odd_stride", None, (0, 1, 32, 4, 0)),
+    (torch.float32, 64, True, "flat", None, (0, 4, 16, 4, 4)),
+    (torch.float32, 64, True, "fresh", None, (0, 4, 16, 4, 4)),
+])
+def test_launch_plan(dtype, D, table_aligned, out_kind, variant, want):
+    F, V, B = 5, 30, 7
+    tables = torch.zeros((F, V, D), dtype=dtype)
+    if not table_aligned:
+        tables = _unaligned(tables)
+    if out_kind == "flat":
+        tables = tables[0]
+        out = torch.empty((B, D))
+    elif out_kind == "buffer":
+        out = torch.empty((B, F + 1, D))[:, 1:]
+    elif out_kind == "bags":
+        out = torch.empty((B, F, D))
+    elif out_kind == "fresh":
+        out = None
+    else:                       # rows 4 B apart from 16-byte multiples
+        out = torch.empty((B, F * D + F)).as_strided((B, F, D),
+                                                    (F * D + F, D + 1, 1))
+    p = tbag.launch_plan(tables, out, variant)
+    assert (p.kind, p.vec, p.group, p.unroll, p.stages) == want
+    if out_kind == "flat":
+        assert (p.fields, p.field_stride, p.out_bstride) == (1, 0, D)
+    elif out_kind == "fresh":
+        assert (p.fields, p.field_stride) == (F, V * D)
+        assert (p.out_bstride, p.out_fstride) == (F * D, D)
+    else:
+        assert (p.fields, p.field_stride) == (F, V * D)
+        assert (p.out_bstride, p.out_fstride) == out.stride()[:2]
+    assert p.group * p.vec >= min(D, 32 * p.vec)
+
+
+def test_launch_plan_ring_needs_16_byte_rows():
+    tables = _unaligned(torch.zeros((3, 10, 64)))
+    with pytest.raises(ValueError, match="ring"):
+        tbag.launch_plan(tables, torch.empty((2, 3, 64)), "ring")
+
+
+def _bad_operands():
+    tables = torch.zeros((3, 10, 8))
+    idx = torch.zeros((4, 3, 2), dtype=torch.int32)
+    w = torch.ones((4, 3, 2))
+    vecs = torch.zeros((4, 4, 8))
+    return {
+        "int64_indices": (tables, idx.long(), None, None),
+        "indices_f_differs": (tables, idx[:, :2].contiguous(), None, None),
+        "indices_not_3d": (tables, idx.view(4, 6), None, None),
+        "no_slots": (tables, idx[..., :0].contiguous(), None, None),
+        "table_not_contiguous": (tables.transpose(1, 2), idx, None, None),
+        "table_int": (tables.int(), idx, None, None),
+        "weights_shape": (tables, idx, w[..., :1].contiguous(), None),
+        "weights_f64": (tables, idx, w.double(), None),
+        "out_too_small": (tables, idx, None, vecs[:3, 1:]),
+        "out_too_narrow": (tables, idx, None, vecs[:, 1:, :4]),
+        "out_column_stride": (tables, idx, None,
+                              vecs.repeat(1, 1, 2)[:, 1:, ::2]),
+        "out_bags_overlap": (tables, idx, None, vecs.view(-1).as_strided(
+            (4, 3, 8), (8, 4, 1))),
+        "out_f64": (tables, idx, None, vecs.double()[:, 1:]),
+        "flat_out_overlap": (tables[0], idx[:, 0], None,
+                             torch.zeros(64).as_strided((4, 8), (4, 1))),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_operands()))
+def test_embed_bag_wrapper_rejects_bad_operands(case):
+    with pytest.raises(ValueError):
+        tbag.check_operands(*_bad_operands()[case])
+
+
+def test_embed_bag_wrapper_accepts_the_forward_operands():
+    tables = torch.zeros((3, 10, 8))
+    idx = torch.zeros((4, 3, 1), dtype=torch.int32)
+    vecs = torch.zeros((4, 4, 8))
+    tbag.check_operands(tables, idx, None, vecs[:, 1:])
+    tbag.check_operands(tables, idx, torch.ones((4, 3, 1)), None)
+    tbag.check_operands(tables[0], idx[:, 0].contiguous(), None,
+                        torch.zeros((4, 8)))
 
 
 # -- 4. loaders and configs -------------------------------------------------------
