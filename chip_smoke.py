@@ -23,7 +23,7 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               integer-valued batch full of ties; kernel D
               bit-equal to its twin (f32 and bf16 tables, D in {18, 64},
               F in {1, 4, 40}, pads, signed weights, and ``mean``), and its
-              stacked form (26 fields, hot 1 and 4, every launch variant)
+              stacked form (26 fields, hot 1 and 4, weights and none)
               into rows 1.. of a [512, 27, 64] buffer, row 0 untouched;
 4. main     — the fused path: ``open_index`` + ``insert_many`` of the
               shard, ``delete_many`` of 1/16 of it and re-insert into the
@@ -70,14 +70,15 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               path's (indices past row 8,388,607: 64-bit offsets), kernel D
               once per forward and A, B (both forms), C never; kernel D's
               stacked form (one launch from the request's indices into
-              rows 1.. of the [B, 27, 64] interaction buffer) in each launch
-              variant beside the route it replaced (field-offset operands,
+              rows 1.. of the [B, 27, 64] interaction buffer) beside the
+              route it replaced (field-offset operands,
               the flat form with a ones weight tensor, ``torch.cat``), its
               flat form against its twin on the flattened 6.66 GB table, the
               byte bounds and ``F.embedding_bag``; at B=512 the wrapper's
               host-time split, the forward's device kernels and its host
               time issued without a sync; the forward's time against its
-              f32 FLOP bound;
+              f32 FLOP bound and, at B=262,144, the device memory it
+              allocates;
 6b. recsys retrieval — the item catalog (field 0's 1,000,000 rows)
               sparsified to its top-16 |value| coordinates in a Sinnamon
               index (n=64, m=8, h=1, f32 raw values), 256 users'
@@ -122,6 +123,9 @@ SHARD_DOCS = 8_912_896 // 8
 PSI_DOC, PSI_QUERY, Q_PAD = 119, 43, 64     # splade_like (synth.py:44)
 RECALL_MIN = 0.95                           # recall@10 limit of PERF.md §2
 PEAK_MEMORY_MAX = 40e9                      # device-memory limit of PERF.md §2
+#: the run's peak device memory before a phase reset the counter to read its
+#: own peak
+_PEAK_BEFORE_RESET = [0]
 DENSE_BATCHES = 20                          # phase 4b: batches of 16
 CHURN_DOCS = 65_536                         # phase 4c: churn sample
 P99_BATCHES, BULK_BATCHES, RETRIEVAL_REQUESTS = 1000, 5, 1000  # phase 6a
@@ -552,7 +556,7 @@ def main(argv=None) -> int:
     d_row, recsys_line = recsys_path(args.seed, dev, card)
     kernel_rows.append(d_row)
 
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
         f"{time.perf_counter() - t_start:.1f}s")
     if peak >= PEAK_MEMORY_MAX:
@@ -882,8 +886,8 @@ def kernel_d_against_twin(gen, dev, seed: int) -> None:
     """Phase 3, kernel D: the flat form bit-equal to its twin for f32 and
     bf16 tables, D in {18, 64} (scalar and 16-byte loads), F in {1, 4, 40},
     20% pads and signed weights, and ``mean`` through ``ops.embed_bag``;
-    the stacked form (26 fields, hot 1 and 4, weights and none, every
-    launch variant) bit-equal to its twin, written into rows 1.. of a
+    the stacked form (26 fields, hot 1 and 4, weights and none) bit-equal
+    to its twin, written into rows 1.. of a
     [B, 27, D] buffer whose row 0 it leaves as it was."""
     import torch
 
@@ -930,22 +934,19 @@ def kernel_d_against_twin(gen, dev, seed: int) -> None:
             w = torch.randn((Bs, Fs, hot), generator=gen, device=dev)
             for weights in (w, None):
                 want = embed_bag.stacked_embed_bag_plain(tables, idx, weights)
-                for variant in embed_bag.VARIANTS:
-                    vecs = torch.full((Bs, Fs + 1, 64), torch.nan,
-                                      device=dev)
-                    embed_bag.embed_bag(tables, idx, weights,
-                                        out=vecs[:, 1:], variant=variant)
-                    torch.cuda.synchronize()
-                    if not torch.equal(vecs[:, 1:].contiguous().view(
-                            torch.int32), want.view(torch.int32)) or \
-                            not torch.isnan(vecs[:, 0]).all():
-                        raise AssertionError(f"stacked kernel D != twin for "
-                                             f"{cell} hot={hot} {variant}")
-                    cases += 1
+                vecs = torch.full((Bs, Fs + 1, 64), torch.nan, device=dev)
+                embed_bag.embed_bag(tables, idx, weights, out=vecs[:, 1:])
+                torch.cuda.synchronize()
+                if not torch.equal(vecs[:, 1:].contiguous().view(
+                        torch.int32), want.view(torch.int32)) or \
+                        not torch.isnan(vecs[:, 0]).all():
+                    raise AssertionError(f"stacked kernel D != twin for "
+                                         f"{cell} hot={hot}")
+                cases += 1
     log(f"[3 kernels] embed_bag stacked form: {cases} cases bit-equal to "
         f"the twin ({Bs} x {Fs} bags into a [{Bs}, {Fs + 1}, 64] buffer, "
         f"row 0 untouched; f32 and bf16 tables, hot 1 and 4, weights and "
-        f"none, variants {', '.join(embed_bag.VARIANTS)})")
+        f"none)")
 
 
 def dlrm_flops(cfg, B: int) -> int:
@@ -1086,7 +1087,9 @@ def recsys_path(seed: int, dev, card: str):
             f"p99 {p['p99']:.4f} ms over {p['batches']} requests; "
             f"{p['qps']:.1f} samples/s"
             + (f"; forward alone {p['forward_ms']:.4f} ms (f32 FLOP bound "
-               f"{p['flop_bound_ms']:.4f} ms)" if "forward_ms" in p else ""))
+               f"{p['flop_bound_ms']:.4f} ms)" if "forward_ms" in p else "")
+            + (f"; one forward allocates {p['forward_alloc_bytes']} B above "
+               f"what is resident" if "forward_alloc_bytes" in p else ""))
     log(f"[6a recsys] done in {time.perf_counter() - t_phase:.1f}s")
 
     retrieval = recsys_retrieval(model, cfg, host_batch, on_card, seed, dev)
@@ -1103,7 +1106,8 @@ def recsys_path(seed: int, dev, card: str):
                       "requests": p["batches"], "samples_per_s": p["qps"],
                       **{k: p[k] for k in ("forward_ms", "flop_bound_ms",
                                            "forward_kernels",
-                                           "forward_host_ms") if k in p}}
+                                           "forward_host_ms",
+                                           "forward_alloc_bytes") if k in p}}
     return d_row, line
 
 
@@ -1115,13 +1119,14 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
     they are, the bags written into rows 1.. of a [B, 27, D] buffer) beside
     the route it replaced on the same batches (``stacked_bag_operands``,
     the flat form with a ``torch.ones`` weight tensor, ``torch.cat`` after
-    x0), in each launch variant, against its twin and its byte bound.  The
+    x0), against its twin and its byte bound.  The
     flat form (field-offset indices into the [26,000,000, 64] table, signed
     0/1 weights) against its twin, ``F.embedding_bag`` on the same operands
     (the yardstick; the port never calls it) and its byte bound.  At B=512
     also the wrapper's host-time split, and the forward's device kernels
     (torch.profiler) and host time issued without a sync.  The DLRM forward
-    against its f32 FLOP bound.  At B=512 each launch takes the next of 32
+    against its f32 FLOP bound; at B=262,144 also the device memory one
+    forward allocates above what is resident before it.  At B=512 each launch takes the next of 32
     batches' indices (109 MB of rows, more than the 50 MB L2), so rows come
     from HBM, as they do for a stream of requests."""
     import itertools
@@ -1160,10 +1165,9 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
             s["vecs"] = model.interaction_input(s["b"].dense, s["b"].sparse)
             s["out"], s["x0"] = s["vecs"][:, 1:], s["vecs"][:, 0].contiguous()
 
-        def stacked(variant=None):
+        def stacked():
             s = next(cyc)
-            return embed_bag.embed_bag(tables, s["b"].sparse, out=s["out"],
-                                       variant=variant)
+            return embed_bag.embed_bag(tables, s["b"].sparse, out=s["out"])
 
         def old_route(s=None):
             s = s or next(cyc)
@@ -1184,9 +1188,6 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
         for key, fn in (("ms", stacked), ("old_route_ms", old_route),
                         ("flat_ms", flat_kernel), ("library_ms", library)):
             r[key] = cuda_ms(fn, reps)
-        for v in embed_bag.VARIANTS:
-            r[f"variant_{v}_ms"] = cuda_ms(lambda: stacked(v), reps)
-        r["variant_default"] = embed_bag.DEFAULT_VARIANT
         for key, fn in (("host_ms", stacked), ("old_route_host_ms", old_route),
                         ("flat_host_ms", flat_kernel),
                         ("library_host_ms", library)):
@@ -1194,11 +1195,8 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
         # device time alone (the CUDA-event time includes any host gap
         # between launches): kernel D's kernel per launch the profiler
         # recorded; every kernel of the old route and the library per call
-        for key, fn in (("device_ms", stacked), ("flat_device_ms",
-                                                 flat_kernel),
-                        *((f"variant_{v}_device_ms",
-                           lambda v=v: stacked(v))
-                          for v in embed_bag.VARIANTS)):
+        for key, fn in (("device_ms", stacked),
+                        ("flat_device_ms", flat_kernel)):
             r[key], recorded = launch_device_ms(fn, reps, "embed_bag_kernel")
             r[key.replace("device_ms", "records")] = recorded
         for key, fn in (("old_route_device_ms", old_route),
@@ -1211,14 +1209,11 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
 
         sparse, fidx, w = s["b"].sparse, s["fidx"], s["w"]
         want = embed_bag.stacked_embed_bag_plain(tables, sparse)
-        for v in embed_bag.VARIANTS:
-            got = embed_bag.embed_bag(tables, sparse, out=s["out"],
-                                      variant=v)
-            torch.cuda.synchronize()
-            if not torch.equal(got.contiguous().view(torch.int32),
-                               want.view(torch.int32)):
-                raise AssertionError(f"stacked kernel D ({v}) != twin at "
-                                     f"{name}")
+        got = embed_bag.embed_bag(tables, sparse, out=s["out"])
+        torch.cuda.synchronize()
+        if not torch.equal(got.contiguous().view(torch.int32),
+                           want.view(torch.int32)):
+            raise AssertionError(f"stacked kernel D != twin at {name}")
         del got, want
         if not torch.equal(old_route(s).view(torch.int32),
                            s["vecs"].view(torch.int32)):
@@ -1257,6 +1252,16 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
         f_ms = cuda_ms(lambda: recsys.score(model, b, cfg), max(3, reps // 4))
         fwd[name] = {"forward_ms": f_ms, "flop_bound_ms":
                      dlrm_flops(cfg, B) / F32_OPS_PER_S * 1e3}
+        if name == "serve_bulk":
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            _PEAK_BEFORE_RESET[0] = max(_PEAK_BEFORE_RESET[0],
+                                        torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            recsys.score(model, b, cfg)
+            torch.cuda.synchronize()
+            fwd[name]["forward_alloc_bytes"] = \
+                torch.cuda.max_memory_allocated() - resident
         if name == "serve_p99":
             r["forward_kernels"], names = device_kernels(
                 lambda: recsys.score(model, b, cfg), 200)
@@ -1272,11 +1277,7 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
             f"{prof(r['device_ms'])} ({r['records']:.2f} launches recorded "
             f"a call), host {r['host_ms']:.4f} ms per call "
             f"(bound {r['bound_ms']:.4f} ms = {r['bytes']} B; twin "
-            f"{r['plain_ms']:.4f} ms); variants "
-            + ", ".join(f"{v} {r[f'variant_{v}_ms']:.4f} ms (device "
-                        f"{prof(r[f'variant_{v}_device_ms'])})"
-                        for v in embed_bag.VARIANTS)
-            + f"; the old route (operands + flat + ones + cat) "
+            f"{r['plain_ms']:.4f} ms); the old route (operands + flat + ones + cat) "
             f"{r['old_route_ms']:.4f} ms, device alone "
             f"{prof(r['old_route_device_ms'])}, host "
             f"{r['old_route_host_ms']:.4f} ms")
@@ -1318,9 +1319,7 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
                     "old_route_device_ms", "old_route_host_ms",
                     "bound_ms_per_slot", "flat_ms", "flat_device_ms",
                     "flat_host_ms", "flat_plain_ms", "flat_bound_ms",
-                    "library_device_ms", "library_host_ms",
-                    *(f"variant_{v}_{k}" for v in embed_bag.VARIANTS
-                      for k in ("ms", "device_ms"))):
+                    "library_device_ms", "library_host_ms"):
             row[key + tag] = r[key]
         if tag:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
@@ -1339,29 +1338,33 @@ def wrapper_split(tables, sparse, out, B: int, reps: int = 2000) -> dict:
     plan, which run once per layout; and the steps the wrapper before this
     design took on every call that this one does not (a ``torch.ones``
     weight tensor, the output's ``torch.empty``,
-    ``torch.cuda.current_stream(dev).cuda_stream``, ``_build.sm_count``)."""
+    ``torch.cuda.current_stream(dev).cuda_stream``, ``_build.sm_count``).
+    Every ctypes call's return code goes through ``_build.check``, so a
+    launch that failed raises."""
     import torch
 
     from repro_torch.kernels import _build, embed_bag
 
     dev = tables.device
-    key = embed_bag.layout_key(tables, sparse, None, out, None)
+    key = embed_bag.layout_key(tables, sparse, None, out)
     fn = embed_bag._launcher()
-    addr = embed_bag._new_launch(tables, sparse, out, None)[0]
+    # the struct is held for as long as its address is used
+    addr, st = embed_bag._new_launch(tables, sparse, out)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ptrs = (tables.data_ptr(), sparse.data_ptr(), None, out.data_ptr())
     steps = {
-        "layout_key": lambda: embed_bag.layout_key(tables, sparse, None, out,
-                                                   None),
+        "layout_key": lambda: embed_bag.layout_key(tables, sparse, None,
+                                                   out),
         "lookup": lambda: embed_bag._LAUNCHES.get(key),
         "data_ptrs": lambda: (tables.data_ptr(), sparse.data_ptr(),
                               out.data_ptr()),
         "stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
-        "ctypes_launch": lambda: fn(addr, *ptrs, stream),
+        "ctypes_launch": lambda: _build.check(fn(addr, *ptrs, stream),
+                                              "embed_bag"),
         "whole_call": lambda: embed_bag.embed_bag(tables, sparse, out=out),
         "once_checks": lambda: embed_bag.check_operands(tables, sparse, None,
                                                         out),
-        "once_plan": lambda: embed_bag._new_launch(tables, sparse, out, None),
+        "once_plan": lambda: embed_bag._new_launch(tables, sparse, out),
         "gone_ones": lambda: torch.ones(sparse.shape, dtype=torch.float32,
                                         device=dev),
         "gone_empty": lambda: torch.empty((B * tables.shape[0],

@@ -35,16 +35,17 @@
 //   offset (one 64-bit divide by F per 32 bags); group j owns bags
 //   j*G .. j*G+G-1, whose values its own lanes hold, and reads them by
 //   __shfl_sync;
-// * a group issues U row loads (U bags' rows, 16 B a lane, into registers)
-//   before its first add, then adds them slot by slot in order, so a warp
-//   keeps 32 / G * U rows in flight where the earlier design kept one per
-//   group;
-// * the `ring` instances (the default where rows are 16-byte aligned)
-//   copy those rows with cp.async into a four-stage shared-memory ring
-//   instead, three work items of U = 4 rows ahead of the one being added;
-//   at B=512 that puts all 16 rows of a lane group in flight at once, and
-//   no registers hold rows in flight (each lane reads back only the 16
-//   bytes it copied, so a lane's own cp.async wait orders it);
+// * where rows are 16-byte chunks, a group copies its rows with cp.async
+//   into a four-stage shared-memory ring, three work items of U = 4 rows
+//   ahead of the one being added, then adds them slot by slot in order; at
+//   B=512 that puts all 16 rows of a lane group in flight at once, and no
+//   registers hold rows in flight (each lane reads back only the 16 bytes
+//   it copied, so a lane's own cp.async wait orders it).  The ring beat
+//   register prefetch of U = 8 rows at both DLRM serving shapes on an H100
+//   (PERF.md section 6), so it is the only 16-byte form;
+// * rows of single elements (unaligned tables or outputs, D * element size
+//   not a multiple of 16) issue U = 4 row loads into registers before the
+//   first add instead;
 // * the output is written with streaming stores (st.global.cs), so the
 //   bags do not evict table rows from the 50 MB L2;
 // * the grid comes from occupancy: as many blocks as the card holds at
@@ -218,7 +219,8 @@ __device__ __forceinline__ void store_rows(const Args& a, float (&acc)[U][VEC],
   }
 }
 
-// The register form: U loads issued, then added in slot order.
+// The register form (single-element rows): U loads issued, then added in
+// slot order.
 template <typename T, int VEC, int U>
 __device__ void run_registers(const Args& a) {
   using R = Row<T, VEC>;
@@ -383,38 +385,45 @@ embed_bag_kernel(const Args a) {
   }
 }
 
-// Ring stages S (0: registers) and the shared memory a block of `warps`
-// warps needs.
+// The shared memory a block of `warps` warps needs: S ring stages (0:
+// registers).
 template <int U, int S>
 constexpr size_t ring_bytes(int warps) {
   return S > 0 ? sizeof(uint4) * warps * S * U * 32 : 0;
 }
 
+constexpr int kMaxDevices = 64;           // devices whose occupancy is kept
+
 template <typename T, int VEC, int U, int S>
 int launch(const Args& a, int sms, cudaStream_t stream) {
-  static int occupancy[kMaxWarps + 1] = {0};   // blocks an SM, per warps
+  // blocks an SM for each block size, per device: found (with the
+  // attribute the 64 KB ring at 8 warps needs) on a device's first launch
+  static int occupancy[kMaxDevices][kMaxWarps + 1] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long chunks = (a.n_bags + 31) / 32;
   const int warps = static_cast<int>(
       std::min<long long>(kMaxWarps, std::max<long long>(1, (chunks + sms - 1)
                                                               / sms)));
   const size_t smem = ring_bytes<U, S>(warps);
   auto kernel = embed_bag_kernel<T, VEC, U, S>;
-  if (occupancy[warps] == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(ring_bytes<U, S>(kMaxWarps)));
-    int n = 0;
+  int n = device < kMaxDevices ? occupancy[device][warps] : 0;
+  if (n == 0) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(ring_bytes<U, S>(kMaxWarps)));
     if (e == cudaSuccess) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
                                                         warps * 32, smem);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
-    occupancy[warps] = std::max(n, 1);
+    n = std::max(n, 1);
+    if (device < kMaxDevices) occupancy[device][warps] = n;
   }
   const long long blocks = (chunks + warps - 1) / warps;
   const int grid = static_cast<int>(
-      std::min<long long>(blocks, static_cast<long long>(sms) *
-                                      occupancy[warps]));
+      std::min<long long>(blocks, static_cast<long long>(sms) * n));
   kernel<<<grid, warps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -423,16 +432,14 @@ int launch(const Args& a, int sms, cudaStream_t stream) {
 
 // What a launch needs besides its pointers, built once per layout by the
 // wrapper (its ctypes Structure `_Launch` has the same fields in the same
-// order).  table_kind: 0 = float32, 1 = bfloat16.  vec: 1, or 16 bytes'
-// worth of the table's elements (4 for f32, 8 for bf16) when D * element
-// size is a multiple of 16 and the table, the output and its strides are
-// 16-byte aligned.  unroll: rows in flight a lane group (U).  stages: 0
-// loads into registers (U = 8; 4 for vec 1); 4 copies through the cp.async
-// ring (16-byte vec, U = 4).  group: lanes a row, a power of
-// two in [1, 32].  sms: the card's SMs.
+// order).  table_kind: 0 = float32, 1 = bfloat16.  vec: 1 (U = 4 loads
+// into registers), or 16 bytes' worth of the table's elements (4 for f32,
+// 8 for bf16; the cp.async ring) when D * element size is a multiple of 16
+// and the table, the output and its strides are 16-byte aligned.  group:
+// lanes a row, a power of two in [1, 32].  sms: the card's SMs.
 struct Launch {
   long long field_stride, n_bags, out_bstride, out_fstride;
-  int table_kind, vec, unroll, stages, D, F, hot, group, sms, pad;
+  int table_kind, vec, D, F, hot, group, sms, pad;
 };
 
 // Returns the cudaError_t of the launch (0 = success).
@@ -451,19 +458,14 @@ extern "C" int embed_bag_launch(const Launch* L, const void* table,
                L->hot, L->n_bags, group, static_cast<float*>(out),
                L->out_bstride, L->out_fstride};
   const int sms = L->sms;
-  switch (L->table_kind * 1000 + L->vec * 100 + L->unroll * 10 +
-          L->stages) {
-    case 0 * 1000 + 4 * 100 + 8 * 10 + 0:
-      return launch<float, 4, 8, 0>(a, sms, st);
-    case 0 * 1000 + 4 * 100 + 4 * 10 + 4:
+  switch (L->table_kind * 100 + L->vec) {
+    case 0 * 100 + 4:
       return launch<float, 4, 4, 4>(a, sms, st);
-    case 0 * 1000 + 1 * 100 + 4 * 10 + 0:
+    case 0 * 100 + 1:
       return launch<float, 1, 4, 0>(a, sms, st);
-    case 1 * 1000 + 8 * 100 + 8 * 10 + 0:
-      return launch<Bf16, 8, 8, 0>(a, sms, st);
-    case 1 * 1000 + 8 * 100 + 4 * 10 + 4:
+    case 1 * 100 + 8:
       return launch<Bf16, 8, 4, 4>(a, sms, st);
-    case 1 * 1000 + 1 * 100 + 4 * 10 + 0:
+    case 1 * 100 + 1:
       return launch<Bf16, 1, 4, 0>(a, sms, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``embed_bag`` of
 ``repro/kernels/embed_bag.py``.  The CUDA source is ``csrc/embed_bag.cu``;
 its header says what bounds the kernel on an H100 (the bytes of the rows it
 gathers and of its output) and how the design meets that (32 bags a warp
-with their indices loaded once, U row loads in flight a lane group,
+with their indices loaded once, a cp.async ring that keeps 16 rows in
+flight a lane group (U = 4 loads into registers for single-element rows),
 streaming stores, an occupancy-sized grid, 64-bit row offsets).
 
 :func:`embed_bag` has two forms, each one launch:
@@ -38,12 +39,6 @@ from repro_torch.kernels import _build
 Tensor = torch.Tensor
 
 _TABLE_KIND = {torch.float32: 0, torch.bfloat16: 1}
-#: Launch variants of the kernel, (U, S): U = 8 row loads in flight a lane
-#: group, into registers (S = 0), or U = 4 through an S = 4 stage cp.async
-#: ring in shared memory (16-byte rows only), the faster of the two on an
-#: H100 at both DLRM serving shapes (PERF.md §6).
-VARIANTS = {"registers": (8, 0), "ring": (4, 4)}
-DEFAULT_VARIANT = "ring"
 
 
 def embed_bag_plain(table: Tensor, indices: Tensor,
@@ -86,41 +81,30 @@ def stacked_embed_bag_plain(tables: Tensor, indices: Tensor,
 class Plan(NamedTuple):
     """The arguments of one launch that depend on the operands' layout."""
     kind: int            # table element type: 0 f32, 1 bf16
-    vec: int             # elements a lane loads at once
+    vec: int             # elements a lane loads at once (16 bytes' worth:
+                         # the cp.async ring; 1: loads into registers)
     group: int           # lanes a row
-    unroll: int          # row loads in flight a lane group
-    stages: int          # cp.async ring stages (0: into registers)
     fields: int          # F (1: flat)
     field_stride: int    # elements between two fields' tables (0: flat)
     out_bstride: int     # elements between bags b and b + 1 of ``out``
     out_fstride: int     # elements between fields f and f + 1 of ``out``
 
 
-def row_plan(dtype: torch.dtype, D: int, aligned: bool,
-             variant: Optional[str] = None):
-    """(kind, vec, group, unroll, stages) for rows of D ``dtype`` elements:
-    16 bytes' worth a lane where a row is a whole number of 16-byte chunks
-    and every address is 16-byte aligned (``aligned``), else one element;
-    lanes a row the smallest power of two that covers its loads, at most
-    32.  A row of single elements runs four loads in flight into registers
-    (the default variant falls back to that; a ring asked for by name
-    raises: it needs 16-byte rows)."""
+def row_plan(dtype: torch.dtype, D: int, aligned: bool):
+    """(kind, vec, group) for rows of D ``dtype`` elements: 16 bytes' worth
+    a lane where a row is a whole number of 16-byte chunks and every
+    address is 16-byte aligned (``aligned``), else one element; lanes a row
+    the smallest power of two that covers its loads, at most 32."""
     element_size = torch.empty((), dtype=dtype).element_size()
     vec = 16 // element_size
     if not aligned or (D * element_size) % 16:
         vec = 1
     chunks = max(1, D // vec)
     group = min(32, 1 << (chunks - 1).bit_length())
-    unroll, stages = VARIANTS[variant or DEFAULT_VARIANT]
-    if vec == 1:
-        if stages and variant is not None:
-            raise ValueError("the cp.async ring needs 16-byte aligned rows")
-        unroll, stages = 4, 0
-    return _TABLE_KIND[dtype], vec, group, unroll, stages
+    return _TABLE_KIND[dtype], vec, group
 
 
-def launch_plan(table: Tensor, out: Optional[Tensor] = None,
-                variant: Optional[str] = None) -> Plan:
+def launch_plan(table: Tensor, out: Optional[Tensor] = None) -> Plan:
     """The launch's :class:`Plan` for ``table`` ([V, D] or [F, V, D]) and
     the output view ``out`` ([B, D] or [B, F, D]; None: a fresh contiguous
     one, which the caching allocator aligns to 512 B): field stride V·D for
@@ -137,7 +121,7 @@ def launch_plan(table: Tensor, out: Optional[Tensor] = None,
         out_aligned = out.data_ptr() % 16 == 0
     aligned = (table.data_ptr() % 16 == 0 and out_aligned
                and s_b % 4 == 0 and s_f % 4 == 0)
-    return Plan(*row_plan(table.dtype, D, aligned, variant),
+    return Plan(*row_plan(table.dtype, D, aligned),
                 fields=F,
                 field_stride=table.shape[1] * D if stacked else 0,
                 out_bstride=s_b, out_fstride=s_f)
@@ -193,8 +177,8 @@ class _Launch(ctypes.Structure):
     """``struct Launch`` of ``csrc/embed_bag.cu``, field for field."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
         "field_stride", "n_bags", "out_bstride", "out_fstride")] + [
-        (n, ctypes.c_int) for n in ("table_kind", "vec", "unroll", "stages",
-                                    "D", "F", "hot", "group", "sms", "pad")]
+        (n, ctypes.c_int) for n in ("table_kind", "vec", "D", "F", "hot",
+                                    "group", "sms", "pad")]
 
 
 _FNS: dict = {}                 # the launcher of each loaded library
@@ -217,7 +201,7 @@ def _launcher():
 
 
 def layout_key(table: Tensor, indices: Tensor, weights: Optional[Tensor],
-               out: Optional[Tensor], variant: Optional[str]) -> tuple:
+               out: Optional[Tensor]) -> tuple:
     """The operands' layout: all that :func:`check_operands` and
     :func:`launch_plan` read, so a layout seen before passed the checks and
     has its launch struct."""
@@ -228,14 +212,12 @@ def layout_key(table: Tensor, indices: Tensor, weights: Optional[Tensor],
                 weights.dtype, weights.shape, weights.is_contiguous(),
                 weights.device),
             None if out is None else (out.dtype, out.shape, out.stride(),
-                                      out.device, out.data_ptr() % 16),
-            variant)
+                                      out.device, out.data_ptr() % 16))
 
 
 def _launch(table: Tensor, indices: Tensor, weights: Optional[Tensor],
-            out: Optional[Tensor] = None,
-            variant: Optional[str] = None) -> Tensor:
-    key = layout_key(table, indices, weights, out, variant)
+            out: Optional[Tensor] = None) -> Tensor:
+    key = layout_key(table, indices, weights, out)
     entry = _LAUNCHES.get(key)
     if entry is None:
         check_operands(table, indices, weights, out)
@@ -243,7 +225,7 @@ def _launch(table: Tensor, indices: Tensor, weights: Optional[Tensor],
     if entry is None:
         if len(_LAUNCHES) >= 256:
             _LAUNCHES.clear()
-        entry = _LAUNCHES[key] = _new_launch(table, indices, out, variant)
+        entry = _LAUNCHES[key] = _new_launch(table, indices, out)
     dev = table.device
     if out is None:
         out = torch.empty((*indices.shape[:-1], table.shape[-1]),
@@ -258,40 +240,38 @@ def _launch(table: Tensor, indices: Tensor, weights: Optional[Tensor],
     return out
 
 
-def _new_launch(table: Tensor, indices: Tensor, out: Optional[Tensor],
-                variant: Optional[str]):
+def _new_launch(table: Tensor, indices: Tensor, out: Optional[Tensor]):
     """(address of the launch struct, the struct), the struct None where
-    there is no bag or no column."""
+    there is no bag or no column.  The address is valid only while the
+    struct is held."""
     D = table.shape[-1]
-    p = launch_plan(table, out, variant)
+    p = launch_plan(table, out)
     n_bags = indices.shape[0] * p.fields
     if n_bags == 0 or D == 0:
         return 0, None
     st = _Launch(p.field_stride, n_bags, p.out_bstride, p.out_fstride,
-                 p.kind, p.vec, p.unroll, p.stages, D, p.fields,
+                 p.kind, p.vec, D, p.fields,
                  indices.shape[-1], p.group, _build.sm_count(table.device), 0)
     return ctypes.addressof(st), st
 
 
 def embed_bag(table: Tensor, indices: Tensor,
               weights: Optional[Tensor] = None, *,
-              out: Optional[Tensor] = None, variant: Optional[str] = None,
+              out: Optional[Tensor] = None,
               use_kernel: Optional[bool] = None) -> Tensor:
     """Weighted-sum bags, f32[B, D] (flat) or f32[B, F, D] (stacked), in
     ``out`` when given.
 
     ``use_kernel`` None launches the CUDA kernel for CUDA tensors and runs
     the plain twin for CPU tensors; False forces the twin; True on CPU
-    tensors raises.  ``variant`` picks the kernel's launch variant
-    (:data:`VARIANTS`; None: :data:`DEFAULT_VARIANT`).  Indices must lie in
-    [-1, V).
+    tensors raises.  Indices must lie in [-1, V).
     """
     if use_kernel is None:
         use_kernel = table.is_cuda
     if use_kernel:
         if not table.is_cuda:
             raise ValueError("the CUDA kernel needs CUDA tensors")
-        return _launch(table, indices, weights, out, variant)
+        return _launch(table, indices, weights, out)
     plain = embed_bag_plain if table.dim() == 2 else stacked_embed_bag_plain
     bags = plain(table, indices, weights)
     if out is None:

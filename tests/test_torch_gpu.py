@@ -386,11 +386,9 @@ def _stacked_operands(rng, F, V, D, B, hot, dtype, cuda, aligned=True,
 @pytest.mark.parametrize("cell", ["f32", "bf16"])
 @pytest.mark.parametrize("hot", [1, 4])
 @pytest.mark.parametrize("weighted", [True, False])
-@pytest.mark.parametrize("variant,aligned", [
-    (None, True), ("registers", True), ("ring", True), (None, False),
-    ("registers", False)])
+@pytest.mark.parametrize("aligned", [True, False])
 def test_stacked_embed_bag_bit_equal_to_twin(cuda, cell, hot, weighted,
-                                             variant, aligned):
+                                             aligned):
     """The stacked form writes each bag into rows 1.. of the [B, F+1, D]
     buffer, bit-equal to its twin and to the flat twin over the field-offset
     operands, leaves row 0 as it was, and launches once."""
@@ -399,12 +397,11 @@ def test_stacked_embed_bag_bit_equal_to_twin(cuda, cell, hot, weighted,
                                              CELLS[cell], cuda, aligned,
                                              weighted)
     assert (tables.data_ptr() % 16 == 0) == aligned
-    plan = embed_bag.launch_plan(tables, vecs[:, 1:], variant)
+    plan = embed_bag.launch_plan(tables, vecs[:, 1:])
     assert plan.vec == (16 // tables.element_size() if aligned else 1)
     sentinel = vecs[:, 0].clone()
     before = embed_bag.embed_bag.launches
-    got = embed_bag.embed_bag(tables, idx, w, out=vecs[:, 1:],
-                              variant=variant)
+    got = embed_bag.embed_bag(tables, idx, w, out=vecs[:, 1:])
     assert embed_bag.embed_bag.launches == before + 1
     assert got.data_ptr() == vecs[:, 1:].data_ptr()
     want = embed_bag.stacked_embed_bag_plain(tables, idx, w)
@@ -419,14 +416,6 @@ def test_stacked_embed_bag_bit_equal_to_twin(cuda, cell, hot, weighted,
     assert torch.equal(bits, flat.view(-1, F, D).view(torch.int32))
     assert torch.equal(vecs[:, 0].view(torch.int32),
                        sentinel.view(torch.int32))
-
-
-def test_stacked_embed_bag_ring_needs_aligned_rows(cuda):
-    rng = np.random.default_rng(3)
-    tables, idx, w, vecs = _stacked_operands(rng, 3, 50, 64, 40, 1,
-                                             torch.float32, cuda, False)
-    with pytest.raises(ValueError):
-        embed_bag.embed_bag(tables, idx, w, out=vecs[:, 1:], variant="ring")
 
 
 @pytest.mark.parametrize("B", [1, 2, 20, 512])

@@ -241,25 +241,25 @@ def _unaligned(t):
     return base[1:].view(t.shape)
 
 
-@pytest.mark.parametrize("dtype,D,table_aligned,out_kind,variant,want", [
-    # (kind, vec, group, unroll, stages)
-    (torch.float32, 64, True, "buffer", None, (0, 4, 16, 4, 4)),
-    (torch.bfloat16, 64, True, "buffer", None, (1, 8, 8, 4, 4)),
-    (torch.float32, 64, True, "buffer", "registers", (0, 4, 16, 8, 0)),
-    (torch.bfloat16, 64, True, "buffer", "registers", (1, 8, 8, 8, 0)),
-    (torch.float32, 64, True, "buffer", "ring", (0, 4, 16, 4, 4)),
-    (torch.float32, 64, False, "buffer", None, (0, 1, 32, 4, 0)),
-    (torch.float32, 64, False, "buffer", "registers", (0, 1, 32, 4, 0)),
-    (torch.float32, 18, True, "bags", None, (0, 1, 32, 4, 0)),
-    (torch.bfloat16, 8, True, "bags", None, (1, 8, 1, 4, 4)),
-    (torch.float32, 8, True, "bags", "registers", (0, 4, 2, 8, 0)),
-    (torch.float32, 128, True, "bags", None, (0, 4, 32, 4, 4)),
-    (torch.float32, 256, True, "bags", None, (0, 4, 32, 4, 4)),
-    (torch.float32, 64, True, "odd_stride", None, (0, 1, 32, 4, 0)),
-    (torch.float32, 64, True, "flat", None, (0, 4, 16, 4, 4)),
-    (torch.float32, 64, True, "fresh", None, (0, 4, 16, 4, 4)),
+@pytest.mark.parametrize("dtype,D,table_aligned,out_kind,want", [
+    # (kind, vec, group)
+    (torch.float32, 64, True, "buffer", (0, 4, 16)),
+    (torch.bfloat16, 64, True, "buffer", (1, 8, 8)),
+    (torch.bfloat16, 64, False, "buffer", (1, 1, 32)),
+    (torch.bfloat16, 18, True, "bags", (1, 1, 32)),
+    (torch.float32, 4, True, "bags", (0, 4, 1)),
+    (torch.float32, 64, False, "buffer", (0, 1, 32)),
+    (torch.float32, 64, False, "fresh", (0, 1, 32)),
+    (torch.float32, 18, True, "bags", (0, 1, 32)),
+    (torch.bfloat16, 8, True, "bags", (1, 8, 1)),
+    (torch.float32, 8, True, "bags", (0, 4, 2)),
+    (torch.float32, 128, True, "bags", (0, 4, 32)),
+    (torch.float32, 256, True, "bags", (0, 4, 32)),
+    (torch.float32, 64, True, "odd_stride", (0, 1, 32)),
+    (torch.float32, 64, True, "flat", (0, 4, 16)),
+    (torch.float32, 64, True, "fresh", (0, 4, 16)),
 ])
-def test_launch_plan(dtype, D, table_aligned, out_kind, variant, want):
+def test_launch_plan(dtype, D, table_aligned, out_kind, want):
     F, V, B = 5, 30, 7
     tables = torch.zeros((F, V, D), dtype=dtype)
     if not table_aligned:
@@ -276,8 +276,8 @@ def test_launch_plan(dtype, D, table_aligned, out_kind, variant, want):
     else:                       # rows 4 B apart from 16-byte multiples
         out = torch.empty((B, F * D + F)).as_strided((B, F, D),
                                                     (F * D + F, D + 1, 1))
-    p = tbag.launch_plan(tables, out, variant)
-    assert (p.kind, p.vec, p.group, p.unroll, p.stages) == want
+    p = tbag.launch_plan(tables, out)
+    assert (p.kind, p.vec, p.group) == want
     if out_kind == "flat":
         assert (p.fields, p.field_stride, p.out_bstride) == (1, 0, D)
     elif out_kind == "fresh":
@@ -289,10 +289,15 @@ def test_launch_plan(dtype, D, table_aligned, out_kind, variant, want):
     assert p.group * p.vec >= min(D, 32 * p.vec)
 
 
-def test_launch_plan_ring_needs_16_byte_rows():
-    tables = _unaligned(torch.zeros((3, 10, 64)))
-    with pytest.raises(ValueError, match="ring"):
-        tbag.launch_plan(tables, torch.empty((2, 3, 64)), "ring")
+def test_launch_plan_unaligned_output_loads_single_elements():
+    """An aligned table into an output view whose base is 4 bytes past a
+    16-byte boundary: one element a lane, the view's own strides."""
+    tables = torch.zeros((3, 10, 64))
+    out = _unaligned(torch.empty((2, 3, 64)))
+    assert out.data_ptr() % 16 == 4
+    p = tbag.launch_plan(tables, out)
+    assert (p.kind, p.vec, p.group) == (0, 1, 32)
+    assert (p.out_bstride, p.out_fstride) == (3 * 64, 64)
 
 
 def _bad_operands():
