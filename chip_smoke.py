@@ -56,6 +56,25 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               undershoot beyond the quantization margin), and the
               churn -> compact drift trajectory on a sample (compaction must
               return the drift to 0);
+4d. durable — the same documents through ``open_index(IndexConfig(...,
+              durability=DurabilityConfig(wal_dir, snapshot_dir, fsync=True,
+              snapshot_keep=1)))`` under ``build/``: logged and applied in
+              batches of 32,768 (each batch copied to the host, appended
+              and fsync'd before it is applied), a snapshot (~5.33 GB:
+              the 4.18 GB bitmap, 285 MB sketch, 855 MB store; the WAL it
+              covers is pruned), a WAL tail of phase 4's churn (one batched
+              delete of every 16th doc, their re-insert into the dirty
+              slots, a logged ``compact()``), then the index is dropped and
+              a new one recovered from snapshot + tail: every state leaf,
+              the free list and the id map bit-equal to the live index's,
+              256 queries (k=10, k'=800, fused) giving its ids and scores
+              bit for bit, kernel A and B's rerank kernel launched on the
+              recovered index and C, D and the LinScan not.  Prints the
+              WAL append rate with fsync, WAL and snapshot bytes, the
+              snapshot's seconds (device-to-host, write), the recovery's
+              (manifest + npz read, host-to-device, tail replay), the
+              recovered index's first-batch and p50 latency at B=256 and
+              the phase's wall time; fails loudly when the disk is short;
 6a. recsys  — DLRM-rm2 (``repro_torch.configs.dlrm_rm2.full_config()``:
               26 × 1,000,000 × 64 f32 tables, 6.66 GB, drawn on the card
               from ``--seed``) served through ``models.recsys``: 1,000
@@ -94,8 +113,9 @@ Launch counts are read per path: kernel A and B's rerank kernel
 kernel on the dense path (and A not at all there), D on neither, and
 ``csr_score`` on none of them (it launches for the recall ground truth); D
 alone on the recsys path; A and the rerank kernel on the recsys
-retrieval.  Ends with a JSON line of the recsys numbers, a
-JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
+retrieval; A and the rerank kernel (``launches_durable``) on the recovered
+durable index.  Ends with a JSON line of the recsys numbers, one of the
+durability numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
 directory without the package.
@@ -108,8 +128,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -128,6 +150,10 @@ PEAK_MEMORY_MAX = 40e9                      # device-memory limit of PERF.md §2
 _PEAK_BEFORE_RESET = [0]
 DENSE_BATCHES = 20                          # phase 4b: batches of 16
 CHURN_DOCS = 65_536                         # phase 4c: churn sample
+DURABLE_BATCH = 32_768                      # phase 4d: docs per logged batch
+DURABLE_BATCHES = 20                        # phase 4d: timed B=256 batches
+#: free disk phase 4d needs: WAL (~1.15 GB) + snapshot (~5.33 GB) + margin
+DURABLE_DISK_BYTES = 8 * 10**9
 P99_BATCHES, BULK_BATCHES, RETRIEVAL_REQUESTS = 1000, 5, 1000  # phase 6a
 ITEM_NNZ, ITEM_M, ITEM_KPRIME, USERS = 16, 8, 200, 256      # phase 6b
 
@@ -449,7 +475,7 @@ def main(argv=None) -> int:
     if not (sres.ids == res16.ids).all():
         raise AssertionError("staged ids != fused ids")
     log("[4 main] staged batch (B=16) spans: " + ", ".join(
-        f"{n} {ms:.3f} ms" for n, ms in staged.last_trace.spans))
+        f"{s.name} {s.ms:.3f} ms" for s in staged.last_trace.spans))
 
     qi16 = q_idx[lo:lo + 16].contiguous()
     qv16 = q_val[lo:lo + 16].contiguous()
@@ -549,12 +575,20 @@ def main(argv=None) -> int:
     eval_path(corpus_idx, corpus_val, q_idx[:256], q_val[:256], args.seed,
               dev)
 
+    # -- 4d. durability: log, snapshot, recover the shard ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    durable_counts, durable_line = durable_path(
+        corpus_idx, corpus_val, q_idx[:256], q_val[:256], args.seed, dev)
+
     # -- 6a / 6b. DLRM-rm2 serving and its users' retrieval --------------------
     del corpus_idx, corpus_val, q_idx, q_val
     gc.collect()
     torch.cuda.empty_cache()
     d_row, recsys_line = recsys_path(args.seed, dev, card)
     kernel_rows.append(d_row)
+    for row in kernel_rows:
+        row["launches_durable"] = durable_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -563,6 +597,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"peak device memory {peak / 1e9:.2f} GB >= "
                              f"{PEAK_MEMORY_MAX / 1e9:.0f} GB")
     print(json.dumps({"recsys": recsys_line}), flush=True)
+    print(json.dumps({"durable": durable_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -880,6 +915,194 @@ def eval_path(doc_idx, doc_val, q_idx, q_val, seed, dev) -> None:
     if ch["compacted"]["drift_max"] != 0.0 or ch["churned"]["drift_max"] <= 0:
         raise AssertionError(f"compaction did not remove the drift: {ch}")
     log(f"[4c eval] done in {time.perf_counter() - t0:.1f}s")
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def durable_path(doc_idx, doc_val, q_idx, q_val, seed, dev):
+    """Phase 4d: the shard through the durable index — logged inserts, a
+    snapshot, a churn tail, then recovery into a new index checked bit for
+    bit against the dropped one.  Works under a scratch directory in
+    ``build/`` (removed at the end); refuses to start when the disk there
+    lacks ``DURABLE_DISK_BYTES``.  Returns (launch counts on the recovered
+    index, the numbers)."""
+    import torch
+
+    from repro_torch.obs import metrics as obs_metrics
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < DURABLE_DISK_BYTES:
+        raise RuntimeError(f"phase 4d needs {DURABLE_DISK_BYTES} B of free "
+                           f"disk under {root} for its WAL and snapshot; "
+                           f"{free} B are free")
+    log(f"[4d durable] {free / 1e9:.1f} GB free under build/ "
+        f"(needs {DURABLE_DISK_BYTES / 1e9:.0f} GB)")
+    scratch = tempfile.mkdtemp(prefix="durable-4d-", dir=root)
+    _PEAK_BEFORE_RESET[0] = max(_PEAK_BEFORE_RESET[0],
+                                torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    prev = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    try:
+        return durable_run(doc_idx, doc_val, q_idx, q_val, seed, dev,
+                           scratch)
+    finally:
+        obs_metrics.set_registry(prev)
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def durable_run(doc_idx, doc_val, q_idx, q_val, seed, dev, scratch):
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.api import DurabilityConfig, IndexConfig, open_index
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving.serve import QueryServer
+
+    t_phase = time.perf_counter()
+    reg = obs_metrics.get_registry()
+    docs = doc_idx.shape[0]
+    wd, sd = os.path.join(scratch, "wal"), os.path.join(scratch, "snap")
+    cfg = IndexConfig(n=N, capacity=((docs + 31) // 32) * 32, m=M, h=H,
+                      max_nnz=P, seed=seed,
+                      durability=DurabilityConfig(wal_dir=wd,
+                                                  snapshot_dir=sd, fsync=True,
+                                                  snapshot_keep=1))
+    index = open_index(cfg, device=dev)
+    if index.size:
+        raise AssertionError(f"a fresh durable index holds {index.size} docs")
+    t0 = time.perf_counter()
+    for lo in range(0, docs, DURABLE_BATCH):
+        hi = min(lo + DURABLE_BATCH, docs)
+        index.insert_many(range(lo, hi), doc_idx[lo:hi], doc_val[lo:hi])
+    torch.cuda.synchronize()
+    t_log = time.perf_counter() - t0
+    snap = reg.snapshot()
+    append = snap["repro_wal_append_ms"]["series"][0]
+    fsync = snap["repro_wal_fsync_ms"]["series"][0]
+    wal_bytes = dir_bytes(wd)
+    out = {"docs": docs, "batch": DURABLE_BATCH, "log_apply_s": t_log,
+           "wal_records": append["count"], "wal_bytes": wal_bytes,
+           "wal_append_s": append["sum"] / 1e3,
+           "wal_fsync_s": fsync["sum"] / 1e3}
+    out["append_docs_per_s"] = docs / out["wal_append_s"]
+    out["append_mb_per_s"] = wal_bytes / 1e6 / out["wal_append_s"]
+    log(f"[4d durable] logged and applied {docs} docs in {t_log:.2f}s "
+        f"({docs / t_log:.0f} docs/s end to end); WAL {append['count']} "
+        f"records, {wal_bytes} B; appends with fsync {out['wal_append_s']:.3f}"
+        f"s (fsync {out['wal_fsync_s']:.3f}s): {out['append_docs_per_s']:.0f} "
+        f"docs/s, {out['append_mb_per_s']:.1f} MB/s")
+
+    t0 = time.perf_counter()
+    path = index.snapshot()
+    out["snapshot_s"] = time.perf_counter() - t0
+    out.update({f"snapshot_{k}": v for k, v in index.snapshot_timings.items()})
+    out["snapshot_bytes"] = dir_bytes(path)
+    out["wal_bytes_after_prune"] = dir_bytes(wd)
+    log(f"[4d durable] snapshot {out['snapshot_bytes']} B in "
+        f"{out['snapshot_s']:.2f}s (device-to-host "
+        f"{out['snapshot_to_host_s']:.2f}s, write + fsync "
+        f"{out['snapshot_write_s']:.2f}s); WAL after prune "
+        f"{out['wal_bytes_after_prune']} B")
+
+    churn = list(range(0, docs, 16))
+    t0 = time.perf_counter()
+    index.delete_many(churn)
+    churn_t = torch.tensor(churn, device=dev)
+    for lo in range(0, len(churn), DURABLE_BATCH):
+        part = churn_t[lo:lo + DURABLE_BATCH]
+        index.insert_many(part, doc_idx[part], doc_val[part])
+    rebuilt = index.compact()
+    torch.cuda.synchronize()
+    out["tail_s"] = time.perf_counter() - t0
+    out["tail_wal_bytes"] = dir_bytes(wd)
+    if rebuilt != len(churn) or index.size != docs:
+        raise AssertionError(f"tail: compact rebuilt {rebuilt} columns, "
+                             f"index holds {index.size}; want {len(churn)}, "
+                             f"{docs}")
+    want_ids, want_scores = index.search_many(q_idx, q_val, k=K,
+                                              kprime=KPRIME)
+    live, spec = index.state, index.spec
+    live_free, live_map = list(index._free), dict(index._id2slot)
+    for w in index._writers.values():
+        w.close()
+    del index
+    gc.collect()
+    log(f"[4d durable] tail: deleted {len(churn)} docs (one record), "
+        f"re-inserted them into the dirty slots, compacted {rebuilt} "
+        f"columns in {out['tail_s']:.2f}s; WAL tail "
+        f"{out['tail_wal_bytes']} B; live index dropped")
+
+    t0 = time.perf_counter()
+    rec = open_index(cfg, device=dev)
+    torch.cuda.synchronize()
+    out["recover_s"] = time.perf_counter() - t0
+    rt = rec.recovery_timings
+    out.update({"recover_read_s": rt["read_s"],
+                "recover_to_device_s": rt["to_device_s"],
+                "recover_replay_s": rt["replay_s"],
+                "replayed_ops": rt["replayed_ops"]})
+    log(f"[4d durable] recovered {rec.size} docs in {out['recover_s']:.2f}s: "
+        f"manifest + npz read {rt['read_s']:.2f}s, host-to-device "
+        f"{rt['to_device_s']:.2f}s, tail replay {rt['replay_s']:.2f}s "
+        f"({rt['replayed_ops']} ops)")
+    if rec.spec != spec or rec._free != live_free or rec._id2slot != live_map:
+        raise AssertionError("recovered spec, free list or id map != live")
+    bits = lambda t: t.view(torch.uint8) if t.dtype.is_floating_point \
+        else t                                               # noqa: E731
+    st = rec.state
+    for name, a, b in (("mappings", st.mappings, live.mappings),
+                       ("sketch", st.sketch, live.sketch),
+                       ("bits", st.bits, live.bits),
+                       ("store.indices", st.store.indices,
+                        live.store.indices),
+                       ("store.values", st.store.values, live.store.values),
+                       ("active", st.active, live.active),
+                       ("ids", st.ids, live.ids),
+                       ("dirty", st.dirty, live.dirty)):
+        if a.dtype != b.dtype or not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"recovered {name} != live {name}")
+    del live, st
+    gc.collect()
+
+    kernels.reset_launch_counts()
+    server = QueryServer(rec, k=K, kprime=KPRIME)
+    walls = []
+    for _ in range(1 + DURABLE_BATCHES):
+        t0 = time.perf_counter()
+        res = server.query_many(q_idx, q_val)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not (np.array_equal(res.ids, want_ids) and np.array_equal(
+                res.scores.view(np.int32), want_scores.view(np.int32))):
+            raise AssertionError("recovered answers != live answers")
+    counts = kernels.launch_counts()
+    check_path_launches(counts, "recovered durable",
+                        ("sinnamon_score_topk", "csr_rerank_topk"),
+                        ("sinnamon_score", "embed_bag", "csr_score"))
+    out["first_batch_ms"] = walls[0]
+    out["p50_ms_b256"] = float(np.percentile(walls[1:], 50))
+    peak = torch.cuda.max_memory_allocated()
+    out["peak_bytes"] = peak
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"phase 4d peak device memory {peak / 1e9:.2f} "
+                             f"GB >= {PEAK_MEMORY_MAX / 1e9:.0f} GB")
+    del rec, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[4d durable] {len(q_idx)} queries (k={K}, k'={KPRIME}): ids and "
+        f"scores bit-equal to the live index's; state leaves, free list and "
+        f"id map bit-equal; launches {counts}; B={len(q_idx)} first batch "
+        f"{out['first_batch_ms']:.2f} ms, p50 {out['p50_ms_b256']:.2f} ms "
+        f"over {DURABLE_BATCHES}; peak {peak / 2**30:.2f} GiB; phase "
+        f"{out['wall_s']:.1f}s")
+    return counts, out
 
 
 def kernel_d_against_twin(gen, dev, seed: int) -> None:

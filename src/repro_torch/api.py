@@ -8,8 +8,10 @@
     index.insert_many(ids, idx, val)
     result = QueryServer(index, k=10).query_many(q_idx, q_val)
 
-This slice serves the ephemeral single-device row of the reference's
-routing table.  Durability, ``shards > 1`` and ``device_budget_mb`` raise
+It serves the single-device rows of the reference's routing table: an
+ephemeral ``SinnamonIndex``, or with a :class:`DurabilityConfig` a
+``DurableSinnamonIndex`` that recovers snapshot + WAL tail on open (on disk
+in the reference's formats).  ``shards > 1`` and ``device_budget_mb`` raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -21,7 +23,37 @@ from typing import Optional
 from repro_torch.core import engine as eng
 from repro_torch.serving.results import QueryResult, new_trace_id
 
-__all__ = ["IndexConfig", "QueryResult", "new_trace_id", "open_index"]
+__all__ = ["DurabilityConfig", "IndexConfig", "QueryResult", "new_trace_id",
+           "open_index"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DurabilityConfig:
+    """WAL + snapshot policy block of an :class:`IndexConfig` (the
+    reference's ``repro.api.DurabilityConfig``).
+
+    Presence of this block makes :func:`open_index` return a durable index
+    (``repro_torch.persist``): every mutation is logged before it is applied
+    and opening again on the same directories recovers snapshot + WAL tail.
+    """
+
+    wal_dir: str
+    snapshot_dir: Optional[str] = None
+    snapshot_every: Optional[int] = None   # snapshot after N logged ops
+    compact_threshold: Optional[float] = None  # compact when drift exceeds
+    compact_check_every: int = 64
+    fsync: bool = True
+    segment_bytes: int = 4 << 20
+    snapshot_keep: int = 3
+
+    def __post_init__(self):
+        if self.snapshot_every is not None and self.snapshot_dir is None:
+            raise ValueError("snapshot_every requires snapshot_dir "
+                             "(periodic snapshots need somewhere to go)")
+
+    def kwargs(self) -> dict:
+        """Keyword arguments for the Durable* constructors."""
+        return dataclasses.asdict(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,22 +113,27 @@ def open_index(config: IndexConfig, device=None) -> eng.SinnamonIndex:
     """Open the index a config describes, on ``device`` (None: the CUDA
     card; raises when there is none unless ``device="cpu"`` is given).
 
-    The returned index carries ``config`` on ``.config`` and
+    With ``config.durability`` set it returns
+    ``DurableSinnamonIndex.open(...)``, which recovers what its directories
+    hold.  The returned index carries ``config`` on ``.config`` and
     ``config.backend`` as its default scoring backend.
     """
-    if config.durability is not None:
-        raise NotImplementedError(
-            "durability is not ported yet (ROADMAP Queue 1 item 7: persist/ "
-            "and checkpoint/)")
     if config.shards > 1:
         raise NotImplementedError(
-            "shards > 1 is not ported yet (ROADMAP Queue 1 item 11: "
-            "serving/sharded.py on torch.distributed)")
+            "shards > 1, with or without durability, is not ported yet "
+            "(ROADMAP Queue 1 item 11: serving/sharded.py on "
+            "torch.distributed, then DurableShardedSinnamonIndex)")
     if config.device_budget_mb is not None:
         raise NotImplementedError(
-            "device_budget_mb (tiering) is not ported yet (ROADMAP Queue 1 "
-            "item 10: storage/tiered.py)")
-    index = eng.SinnamonIndex(config.engine_spec(), device=device)
+            "device_budget_mb (tiering), with or without durability, is not "
+            "ported yet (ROADMAP Queue 1 item 10: storage/tiered.py, then "
+            "DurableTieredSinnamonIndex)")
+    if config.durability is not None:
+        from repro_torch.persist import DurableSinnamonIndex
+        index = DurableSinnamonIndex.open(config.engine_spec(), device=device,
+                                          **config.durability.kwargs())
+    else:
+        index = eng.SinnamonIndex(config.engine_spec(), device=device)
     index.default_backend = config.backend
     index.config = config
     return index

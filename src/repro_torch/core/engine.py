@@ -28,17 +28,27 @@ Retrieval = Algorithm 6 (budgeted upper-bound scoring) + Algorithm 7
 recycling (§4.3): the sketch column is left dirty and the next insert
 merges into it (max into u, min into l); :func:`compact_state` rebuilds
 the dirty columns from the raw vectors.
+
+:class:`SinnamonIndex` guards its state with a reader-writer lock
+(:class:`StateLock`): searches share it and run side by side, an in-place
+write holds it alone, so a search that runs beside a write answers from
+the state before it or after it, never from half of it (the reference
+gets this from immutable state).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import bitindex, sketch
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.storage import vecstore
 
 Tensor = torch.Tensor
@@ -331,6 +341,23 @@ def fresh_sketch(state: SinnamonState, spec: EngineSpec):
     return u.T, None if l is None else l.T
 
 
+def fresh_cells(state: SinnamonState, spec: EngineSpec) -> Tensor:
+    """The stacked fresh sketch of :func:`fresh_sketch` as the integer bit
+    patterns of its cells, a new [R, C] tensor (``state`` is only read)."""
+    u_f, l_f = fresh_sketch(state, spec)
+    return _ints(u_f) if l_f is None else torch.cat([_ints(u_f),
+                                                     _ints(l_f)])
+
+
+def apply_compaction(state: SinnamonState, fresh: Tensor) -> SinnamonState:
+    """Write :func:`fresh_cells` into every dirty column, in place, and
+    clear ``dirty``; returns ``state``."""
+    cells = _ints(state.sketch)
+    cells.copy_(torch.where(state.dirty[None, :], fresh, cells))
+    state.dirty.zero_()
+    return state
+
+
 def compact_state(state: SinnamonState, spec: EngineSpec) -> SinnamonState:
     """Rebuild every dirty sketch column from the store, in place, and
     clear ``dirty``; returns ``state``.
@@ -338,13 +365,7 @@ def compact_state(state: SinnamonState, spec: EngineSpec) -> SinnamonState:
     Dirty+active columns become the document's fresh sketch, dirty+inactive
     (deleted, not recycled) columns zero; clean columns keep their bits.
     """
-    u_f, l_f = fresh_sketch(state, spec)
-    fresh = _ints(u_f) if l_f is None else torch.cat([_ints(u_f),
-                                                      _ints(l_f)])
-    cells = _ints(state.sketch)
-    cells.copy_(torch.where(state.dirty[None, :], fresh, cells))
-    state.dirty.zero_()
-    return state
+    return apply_compaction(state, fresh_cells(state, spec))
 
 
 def slot_drift(state: SinnamonState, spec: EngineSpec) -> Tensor:
@@ -513,13 +534,145 @@ def search_batch_sketch(state, spec, q_idx, q_val, k, budget=None,
 # Host wrapper: slot allocation, id mapping, growth
 # ---------------------------------------------------------------------------
 
+class _WritePathMetrics:
+    """Write-path metric handles, lazily bound and revalidated against the
+    current process-global registry (so `obs.metrics.set_registry` in tests
+    takes effect on indexes created earlier).  The names and labels are
+    the reference's."""
+
+    __slots__ = ("_registry", "_ops", "_docs", "_batch")
+    _OPS = ("insert", "insert_many", "delete", "delete_many", "grow", "compact")
+
+    def __init__(self):
+        self._registry = None
+
+    def _bind(self):
+        reg = obs_metrics.get_registry()
+        if reg is not self._registry:
+            self._ops = {
+                op: (reg.counter("repro_engine_ops_total",
+                                 "Engine mutations applied.", labels={"op": op}),
+                     reg.histogram(
+                         "repro_engine_update_ms",
+                         "Host wall time of one mutation, scatter dispatch "
+                         "included (async device work not synced).",
+                         labels={"op": op}))
+                for op in self._OPS}
+            self._docs = {
+                d: reg.counter("repro_engine_docs_total",
+                               "Documents written/removed.", labels={"op": d})
+                for d in ("insert", "delete")}
+            self._batch = reg.histogram(
+                "repro_engine_update_batch_docs",
+                "Documents per mutation call.",
+                buckets=obs_metrics.DEFAULT_COUNT_BUCKETS)
+            self._registry = reg
+
+    def record(self, op: str, t0_s: float, ndocs: int = 0) -> None:
+        self._bind()
+        count, hist = self._ops[op]
+        count.inc()
+        hist.observe((time.perf_counter() - t0_s) * 1e3)
+        if ndocs:
+            self._batch.observe(ndocs)
+            self._docs["delete" if op.startswith("delete") else "insert"].inc(ndocs)
+
+
+def pad_sparse(idx, val, width: int):
+    """Pad/truncate one sparse (idx, val) pair (numpy-like, or tensors on
+    any device) to ``width`` on the host: (int32[width] with -1 padding,
+    f32[width]) numpy arrays."""
+    if isinstance(idx, torch.Tensor):
+        idx = idx.cpu().numpy()
+    if isinstance(val, torch.Tensor):
+        val = val.cpu().numpy()
+    idx = np.asarray(idx, np.int32)[:width]
+    val = np.asarray(val, np.float32)[:width]
+    out_i = np.full((width,), -1, np.int32)
+    out_v = np.zeros((width,), np.float32)
+    out_i[:idx.size] = idx
+    out_v[:val.size] = val
+    return out_i, out_v
+
+
+class StateLock:
+    """Reader-writer lock over an index's in-place state.
+
+    ``read()`` is shared: searches run side by side.  ``write()`` is
+    exclusive and re-entrant for its thread, which may also take
+    ``read()`` inside it.  A reading thread may nest reads, but may not
+    take ``write()`` (that would wait for itself, so it raises).  A writer
+    that waits holds off new readers, so a steady stream of searches
+    cannot starve the writes.
+    """
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0            # read holds, over all threads
+        self._writer: Optional[int] = None
+        self._depth = 0              # the writer's nested write holds
+        self._waiting = 0            # writers waiting
+        self._local = threading.local()
+
+    @contextmanager
+    def read(self):
+        me = threading.get_ident()
+        with self._cond:
+            own = self._writer == me
+            if not own:
+                held = getattr(self._local, "reads", 0)
+                if not held:
+                    while self._writer is not None or self._waiting:
+                        self._cond.wait()
+                self._readers += 1
+                self._local.reads = held + 1
+        try:
+            yield
+        finally:
+            if not own:
+                with self._cond:
+                    self._readers -= 1
+                    self._local.reads -= 1
+                    if not self._readers:
+                        self._cond.notify_all()
+
+    @contextmanager
+    def write(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer == me:
+                self._depth += 1
+            else:
+                if getattr(self._local, "reads", 0):
+                    raise RuntimeError("a thread holding the state lock to "
+                                       "read cannot take it to write")
+                self._waiting += 1
+                try:
+                    while self._writer is not None or self._readers:
+                        self._cond.wait()
+                finally:
+                    self._waiting -= 1
+                self._writer, self._depth = me, 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if not self._depth:
+                    self._writer = None
+                    self._cond.notify_all()
+
+
 class SinnamonIndex:
     """Streaming index on one device (paper §4's full system).
 
     Owns the host-side bookkeeping — slot free list, external-id ↔ slot
     map, capacity growth — while the heavy operations are the functions
     above on ``self.state``.  ``device`` None means the CUDA card (raises
-    without one); the tests pass ``device="cpu"``.
+    without one); the tests pass ``device="cpu"``.  Mutations hold
+    ``_state_lock`` to write and searches to read (:class:`StateLock`);
+    every mutation
+    reports to the write-path metrics of ``repro_torch.obs``.
     """
 
     def __init__(self, spec: EngineSpec, device=None):
@@ -529,6 +682,8 @@ class SinnamonIndex:
         self.state = init(spec, self.device)
         self._free = list(range(spec.capacity - 1, -1, -1))  # pop() -> slot 0
         self._id2slot: dict[int, int] = {}
+        self._state_lock = StateLock()
+        self._obs = _WritePathMetrics()
 
     @classmethod
     def from_numpy(cls, spec: EngineSpec, leaves: dict, free, id2slot,
@@ -543,6 +698,8 @@ class SinnamonIndex:
         index.state = convert.state_from_numpy(leaves, spec, index.device)
         index._free = [int(s) for s in free]
         index._id2slot = {int(e): int(s) for e, s in dict(id2slot).items()}
+        index._state_lock = StateLock()
+        index._obs = _WritePathMetrics()
         return index
 
     def _tensor(self, x, dtype) -> Tensor:
@@ -562,13 +719,23 @@ class SinnamonIndex:
 
     # -- streaming updates ---------------------------------------------------
     def insert(self, ext_id: int, idx, val) -> None:
-        i = np.asarray(idx, np.int32)[None, :self.spec.max_nnz]
-        v = np.asarray(val, np.float32)[None, :self.spec.max_nnz]
-        self.insert_many([ext_id], i, v)
+        """Insert one document (coordinates past ``max_nnz`` are dropped);
+        an id already present is overwritten."""
+        t0 = time.perf_counter()
+        i, v = pad_sparse(idx, val, self.spec.max_nnz)
+        self._insert_rows([int(ext_id)], i[None], v[None])
+        self._obs.record("insert", t0, 1)
 
     def insert_many(self, ext_ids, idx_batch, val_batch) -> None:
         """Insert documents ``idx_batch``/``val_batch`` [B, L] (numpy or
         tensors) under ``ext_ids``; an id already present is overwritten."""
+        t0 = time.perf_counter()
+        bn = self._insert_rows(ext_ids, idx_batch, val_batch)
+        self._obs.record("insert_many", t0, bn)
+
+    def _insert_rows(self, ext_ids, idx_batch, val_batch) -> int:
+        """The insert of :meth:`insert_many`; returns the number of
+        documents written (a repeated id counts once)."""
         ext_ids = ext_ids.tolist() if isinstance(ext_ids, torch.Tensor) \
             else [int(e) for e in ext_ids]
         idx_t = self._rows(idx_batch, torch.int32, -1)
@@ -581,39 +748,52 @@ class SinnamonIndex:
             ext_ids = [ext_ids[p] for p in keep]
             sel = torch.tensor(keep, device=self.device)
             idx_t, val_t = idx_t[sel], val_t[sel]
-        for e in ext_ids:
-            if e in self._id2slot:          # overwrite: drop the stale copy
-                self.delete(e)
-        bn = len(ext_ids)
-        while len(self._free) < bn:
-            self.grow(self.spec.capacity * 2)
-        slots = np.array([self._free.pop() for _ in range(bn)], np.int32)
-        insert_batch_masked(
-            self.state, self.spec, self._tensor(slots, torch.int32),
-            self._tensor(np.asarray(ext_ids, np.int64), torch.int64),
-            idx_t, val_t)
-        for eid, slot in zip(ext_ids, slots):
-            self._id2slot[eid] = int(slot)
+        with self._state_lock.write():
+            for e in ext_ids:
+                if e in self._id2slot:      # overwrite: drop the stale copy
+                    self.delete(e)
+            bn = len(ext_ids)
+            while len(self._free) < bn:
+                self.grow(self.spec.capacity * 2)
+            slots = np.array([self._free.pop() for _ in range(bn)], np.int32)
+            insert_batch_masked(
+                self.state, self.spec, self._tensor(slots, torch.int32),
+                self._tensor(np.asarray(ext_ids, np.int64), torch.int64),
+                idx_t, val_t)
+            for eid, slot in zip(ext_ids, slots):
+                self._id2slot[eid] = int(slot)
+        return bn
 
     def delete(self, ext_id: int) -> None:
-        self.delete_many([ext_id])
+        t0 = time.perf_counter()
+        self._delete_ids([ext_id])
+        self._obs.record("delete", t0, 1)
 
     def delete_many(self, ext_ids) -> None:
         """Delete ``ext_ids`` in one :func:`delete_batch_masked` call; the
         state and the free list end as after ``delete`` of each id in order.
         A repeated id is one deletion; an unknown id raises ``KeyError``
         before anything changes."""
+        t0 = time.perf_counter()
+        n = self._delete_ids(ext_ids)
+        self._obs.record("delete_many", t0, n)
+
+    def _delete_ids(self, ext_ids) -> int:
+        """The delete of :meth:`delete_many`; returns the number of
+        documents removed."""
         ext_ids = list(dict.fromkeys(int(e) for e in ext_ids))
-        missing = [e for e in ext_ids if e not in self._id2slot]
-        if missing:
-            raise KeyError(f"unknown document ids: {missing[:5]}")
-        if not ext_ids:
-            return
-        slots = [self._id2slot.pop(e) for e in ext_ids]
-        delete_batch_masked(self.state, self.spec,
-                            self._tensor(np.asarray(slots, np.int32),
-                                         torch.int32))
-        self._free.extend(slots)
+        with self._state_lock.write():
+            missing = [e for e in ext_ids if e not in self._id2slot]
+            if missing:
+                raise KeyError(f"unknown document ids: {missing[:5]}")
+            if not ext_ids:
+                return 0
+            slots = [self._id2slot.pop(e) for e in ext_ids]
+            delete_batch_masked(self.state, self.spec,
+                                self._tensor(np.asarray(slots, np.int32),
+                                             torch.int32))
+            self._free.extend(slots)
+        return len(ext_ids)
 
     # -- retrieval -----------------------------------------------------------
     def _backend(self, backend) -> str:
@@ -647,12 +827,13 @@ class SinnamonIndex:
         scores f32[B, k]) as numpy arrays.  ``score_fn`` (batch-native, see
         :func:`topk_candidates`) overrides the backend."""
         k, kprime = self._sizes(k, kprime)
-        ids, scores, _ = search_batch(
-            self.state, self.spec, self._tensor(q_idx, torch.int32),
-            self._tensor(q_val, torch.float32), k, kprime, budget,
-            self._filter(filter_mask), score_fn=score_fn,
-            backend=self._backend(backend))
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with self._state_lock.read():
+            ids, scores, _ = search_batch(
+                self.state, self.spec, self._tensor(q_idx, torch.int32),
+                self._tensor(q_val, torch.float32), k, kprime, budget,
+                self._filter(filter_mask), score_fn=score_fn,
+                backend=self._backend(backend))
+            return ids.cpu().numpy(), scores.cpu().numpy()
 
     def search_many_sketch(self, q_idx, q_val, k: int,
                            budget: Optional[int] = None,
@@ -660,32 +841,46 @@ class SinnamonIndex:
         """Sketch-only batched search (no rerank): scores are sketch upper
         bounds, not inner products."""
         k = min(k, self.spec.capacity)
-        ids, ub, _ = search_batch_sketch(
-            self.state, self.spec, self._tensor(q_idx, torch.int32),
-            self._tensor(q_val, torch.float32), k, budget,
-            backend=self._backend(backend))
-        return ids.cpu().numpy(), ub.cpu().numpy()
+        with self._state_lock.read():
+            ids, ub, _ = search_batch_sketch(
+                self.state, self.spec, self._tensor(q_idx, torch.int32),
+                self._tensor(q_val, torch.float32), k, budget,
+                backend=self._backend(backend))
+            return ids.cpu().numpy(), ub.cpu().numpy()
 
     # -- capacity --------------------------------------------------------------
     def grow(self, new_capacity: int) -> None:
         """Reallocate to a larger capacity, preserving slot numbering."""
-        spec = self.spec
-        if new_capacity <= spec.capacity or new_capacity % 32 != 0:
-            raise ValueError("new capacity must be a larger multiple of 32")
-        new_spec = dataclasses.replace(spec, capacity=new_capacity)
-        self.state = grow_state(self.state, spec, new_spec)
-        self.spec = new_spec
-        self._free = (list(range(new_capacity - 1, spec.capacity - 1, -1))
-                      + self._free)
+        t0 = time.perf_counter()
+        with self._state_lock.write():
+            spec = self.spec
+            if new_capacity <= spec.capacity or new_capacity % 32 != 0:
+                raise ValueError("new capacity must be a larger multiple "
+                                 "of 32")
+            new_spec = dataclasses.replace(spec, capacity=new_capacity)
+            self.state = grow_state(self.state, spec, new_spec)
+            self.spec = new_spec
+            self._free = (list(range(new_capacity - 1, spec.capacity - 1, -1))
+                          + self._free)
+        self._obs.record("grow", t0)
 
     # -- maintenance -----------------------------------------------------------
     def compact(self) -> int:
         """Rebuild all dirty sketch columns from the store (restores the
         Theorem 5.1 tightness lost to §4.3 churn); returns the number of
-        columns rebuilt."""
+        columns rebuilt.
+
+        The re-encode only reads the state, so it runs outside the state
+        lock and searches go on beside it; the columns are written under
+        the lock.  Like every mutation, it assumes one writer at a time.
+        """
+        t0 = time.perf_counter()
         n_dirty = int(self.state.dirty.sum())
         if n_dirty:
-            compact_state(self.state, self.spec)
+            fresh = fresh_cells(self.state, self.spec)
+            with self._state_lock.write():
+                apply_compaction(self.state, fresh)
+        self._obs.record("compact", t0)
         return n_dirty
 
     def slot_drift(self) -> np.ndarray:

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -54,6 +55,7 @@ class Built:
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()    # one build of a kernel, whatever calls it
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -112,15 +114,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed (once,
+    when searches from several threads make the first call together)."""
     lib = _LOADED.get(name)
-    if lib is None:
-        path = build([name])[name].library
-        try:
-            lib = ctypes.CDLL(str(path))
-        except OSError as e:
-            raise KernelBuildFailure(f"cannot load {path}: {e}") from e
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = build([name])[name].library
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildFailure(f"cannot load {path}: {e}") from e
+            _LOADED[name] = lib
     return lib
 
 

@@ -8,7 +8,8 @@ batched queries and report recall against the exact LinScan.
         [--score-backend fused|pallas|grouped|reference] \
         [--auto-tune --tune-memory-mb 8 --recall-floor 0.9] \
         [--query-batch 16] [--dataset splade_like] [--device cuda|cpu] \
-        [--seed 0]
+        [--seed 0] [--wal runs/wal --snapshot-dir runs/snap \
+         --snapshot-every 5000 --compact-threshold 0.5]
 
 Prints ``indexed N docs over 1 shard(s)`` and ``recall@k=... p50=...``,
 the lines ``repro.launch.serve`` prints.  The corpus and queries are
@@ -21,11 +22,28 @@ ignores ``--m/--sketch-kind/--value-dtype`` and grid-searches them on a
 corpus sample (``repro_torch.eval.tune``, on ``--device``) for the fastest
 configuration that fits ``--tune-memory-mb`` of index memory at ``--docs``
 scale while holding ``--recall-floor`` on the sample.
+
+``--wal DIR`` makes the index durable (``repro_torch.persist``, on disk in
+the reference's formats): every insert/delete is logged to the write-ahead
+log before it is applied, and on startup the launcher *recovers* (latest
+snapshot from ``--snapshot-dir`` + WAL tail replay) instead of re-indexing,
+printing ``recovered N docs from snapshot + WAL tail``.  The corpus flags
+are pinned to the WAL dir (``launch_params.json``); a second run with
+other ones is refused.  ``--snapshot-every N`` snapshots after every N
+logged ops; ``--compact-threshold X`` rebuilds recycled sketch columns
+whenever the max per-slot overestimate exceeds X.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import sys
+
+#: Launch parameters the reference's launcher does not record, with the
+#: value its runs imply (its corpus is always drawn from seed 0).
+_PARAM_DEFAULTS = {"seed": 0}
 
 
 def parse_args(argv=None):
@@ -64,7 +82,58 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    ap.add_argument("--wal", default=None, metavar="DIR",
+                    help="write-ahead-log dir; enables the durable index")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="snapshot dir (recovery base + periodic snapshots)")
+    ap.add_argument("--snapshot-every", type=int, default=None, metavar="N",
+                    help="snapshot after every N logged ops")
+    ap.add_argument("--compact-threshold", type=float, default=None,
+                    metavar="X", help="compact when max sketch drift > X")
+    args = ap.parse_args(argv)
+    if args.wal is None and (args.snapshot_dir is not None
+                             or args.snapshot_every is not None
+                             or args.compact_threshold is not None):
+        ap.error("--snapshot-dir/--snapshot-every/--compact-threshold "
+                 "require --wal (durability is WAL-based)")
+    if args.snapshot_every is not None and args.snapshot_dir is None:
+        ap.error("--snapshot-every requires --snapshot-dir "
+                 "(periodic snapshots need somewhere to go)")
+    if args.auto_tune and args.wal is not None:
+        ap.error("--auto-tune is incompatible with --wal: durable runs pin "
+                 "their spec to the WAL dir; tune first, then launch with "
+                 "the chosen flags")
+    return args
+
+
+def _check_launch_params(args) -> None:
+    """Pin the corpus/spec flags of a durable run to its WAL directory."""
+    params = {"dataset": args.dataset, "docs": args.docs, "m": args.m,
+              "h": args.h, "index_buckets": args.index_buckets,
+              "sketch_kind": args.sketch_kind,
+              "value_dtype": args.value_dtype, "shards": 1,
+              "seed": args.seed}
+    os.makedirs(args.wal, exist_ok=True)
+    pfile = os.path.join(args.wal, "launch_params.json")
+    if os.path.exists(pfile):
+        with open(pfile) as f:
+            prev = json.load(f)
+        changed = {k: (prev.get(k, _PARAM_DEFAULTS.get(k)), v)
+                   for k, v in params.items()
+                   if prev.get(k, _PARAM_DEFAULTS.get(k)) != v
+                   and k != "shards"}
+        if changed:
+            sys.exit(f"refusing to recover from {args.wal}: "
+                     f"{', '.join(f'--{k} was {a!r}, now {b!r}' for k, (a, b) in changed.items())} "
+                     f"— the synthetic corpus/spec would no longer match the "
+                     f"indexed vectors; rerun with the original flags or "
+                     f"fresh --wal/--snapshot-dir directories")
+        if prev != params:       # a reference run's file, or its shard count
+            with open(pfile, "w") as f:
+                json.dump(params, f)
+    else:
+        with open(pfile, "w") as f:
+            json.dump(params, f)
 
 
 def main(argv=None):
@@ -73,7 +142,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch.api import IndexConfig, open_index
+    from repro_torch.api import DurabilityConfig, IndexConfig, open_index
     from repro_torch.data import synth
     from repro_torch.kernels import ops
     from repro_torch.kernels.sinnamon_score import topk_desc
@@ -107,18 +176,37 @@ def main(argv=None):
               f"docs, sample recall@{args.k}={pt['recall_at_k']:.3f} "
               f"({'meets constraints' if result.feasible else 'NO feasible point — best-recall fallback'})",
               flush=True)
+    durability = None
+    if args.wal:
+        # Recovery serves the PREVIOUS run's vectors, while the corpus is
+        # regenerated from the flags: refuse to mix durable state with a
+        # differently-drawn corpus (or a spec the snapshot would override).
+        _check_launch_params(args)
+        durability = DurabilityConfig(
+            wal_dir=args.wal, snapshot_dir=args.snapshot_dir,
+            snapshot_every=args.snapshot_every,
+            compact_threshold=args.compact_threshold)
     index = open_index(IndexConfig(n=ds.n, capacity=cap, m=args.m, h=args.h,
                                    max_nnz=256, positive_only=ds.nonneg,
                                    index_buckets=args.index_buckets,
                                    sketch_kind=sketch_kind,
                                    cell_dtype=cell_dtype,
                                    backend=args.score_backend,
-                                   seed=args.seed),
+                                   seed=args.seed, durability=durability),
                        device=args.device)
-    for lo in range(0, args.docs, 2048):
-        hi = min(lo + 2048, args.docs)
-        index.insert_many(range(lo, hi), idx[lo:hi], val[lo:hi])
+    recovered = index.size
+    if recovered:
+        print(f"recovered {recovered} docs from snapshot + WAL tail",
+              flush=True)
+    todo = np.array([d for d in range(args.docs)
+                     if args.wal is None or d not in index], np.int64)
+    for lo in range(0, len(todo), 2048):
+        chunk = todo[lo:lo + 2048]
+        index.insert_many(chunk.tolist(), idx[chunk], val[chunk])
     print(f"indexed {index.size} docs over 1 shard(s)", flush=True)
+    if args.wal and args.snapshot_dir:
+        index.snapshot()
+        print(f"snapshot written to {args.snapshot_dir}", flush=True)
 
     server = QueryServer(index, k=args.k, kprime=args.kprime,
                          budget=args.budget,

@@ -2,31 +2,21 @@
 ``repro.serving.results``).
 
 ``QueryResult`` is frozen and stays unpackable as the legacy
-``(ids, scores)`` tuple.  ``new_trace_id`` gives process-unique,
-increasing ids in the same ``q-<pid>-<n>`` form as the reference.
+``(ids, scores)`` tuple.  ``new_trace_id`` (from ``repro_torch.obs.trace``)
+gives process-unique, increasing ids in the same ``q-<pid>-<n>`` form as
+the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
-import os
-import threading
 from typing import Optional
 
 import numpy as np
 
+from repro_torch.obs.trace import new_trace_id
+
 __all__ = ["QueryResult", "new_trace_id"]
-
-_trace_counter = itertools.count(1)
-_trace_lock = threading.Lock()
-
-
-def new_trace_id() -> str:
-    """Process-unique, monotonically increasing query trace id."""
-    with _trace_lock:
-        n = next(_trace_counter)
-    return f"q-{os.getpid():x}-{n:x}"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

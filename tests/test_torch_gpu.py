@@ -294,6 +294,89 @@ def test_index_on_card_matches_cpu(cuda, cell):
     torch.testing.assert_close(sc_k, sc_p, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("cell", ["bf16", "f8"])
+def test_durable_index_on_card_recovers_bit_equal(cuda, cell, tmp_path):
+    """A durable index on the card (CUDA update batches, a snapshot, a WAL
+    tail with a batched delete and a compaction) recovers on the card to
+    its live state bit for bit, and serves the same ids and scores through
+    kernel A and B's rerank kernel; the CPU recovery of the same files
+    gives the same state."""
+    import repro_torch.kernels as kernels
+    from repro_torch import convert
+    from repro_torch.persist.durable import DurableSinnamonIndex
+
+    ds = synth.SparseDatasetSpec("t", n=500, psi_doc=24, psi_query=12)
+    idx, val = synth.make_corpus(2, ds, 300, pad=48)
+    qi, qv = synth.make_queries(3, ds, 8, pad=24)
+    spec = teng.EngineSpec(n=500, m=16, h=2, capacity=320, max_nnz=48,
+                           dtype=cell, seed=3)
+    kw = dict(wal_dir=str(tmp_path / "wal"),
+              snapshot_dir=str(tmp_path / "snap"))
+    live = DurableSinnamonIndex.open(spec, device=cuda, **kw)
+    i_t, v_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(val).to(cuda)
+    live.insert_many(list(range(200)), i_t[:200], v_t[:200])
+    live.snapshot()
+    live.delete_many(list(range(0, 200, 7)))
+    live.insert_many(torch.arange(200, 300, device=cuda), i_t[200:],
+                     v_t[200:])
+    live.compact()
+    live.delete(13)
+    want = convert.state_to_numpy(live.state, spec)
+    for dev in (cuda, "cpu"):
+        rec = DurableSinnamonIndex.open(spec, device=dev, **kw)
+        assert rec._id2slot == live._id2slot and rec._free == live._free
+        got = convert.state_to_numpy(rec.state, spec)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    rec = DurableSinnamonIndex.open(spec, device=cuda, **kw)
+    kernels.reset_launch_counts()
+    got_ids, got_sc = rec.search_many(qi, qv, k=10, kprime=60)
+    counts = kernels.launch_counts()
+    assert counts["sinnamon_score_topk"] >= 1
+    assert counts["csr_rerank_topk"] >= 1
+    assert counts["sinnamon_score"] == 0 and counts["embed_bag"] == 0
+    want_ids, want_sc = live.search_many(qi, qv, k=10, kprime=60)
+    np.testing.assert_array_equal(got_ids, want_ids)
+    np.testing.assert_array_equal(got_sc, want_sc)
+
+
+def test_searches_from_threads_on_card_match_one_thread(cuda):
+    """Four threads searching one index on the card at once (the state
+    lock lets them share it) get the answers a single thread gets, through
+    kernel A and B's rerank; a write between rounds is seen by all."""
+    import threading
+
+    ds = synth.SparseDatasetSpec("t", n=500, psi_doc=24, psi_query=12)
+    idx, val = synth.make_corpus(4, ds, 300, pad=48)
+    qi, qv = synth.make_queries(5, ds, 8, pad=24)
+    spec = teng.EngineSpec(n=500, m=16, h=2, capacity=320, max_nnz=48,
+                           dtype="bf16", seed=3)
+    index = teng.SinnamonIndex(spec, device=cuda)
+    index.insert_many(list(range(300)), idx, val)
+    for round_ in range(2):
+        want = index.search_many(qi, qv, k=10, kprime=60)
+        got, errors = [None] * 4, []
+
+        def search(t):
+            try:
+                for _ in range(5):
+                    got[t] = index.search_many(qi, qv, k=10, kprime=60)
+            except Exception as e:              # noqa: BLE001
+                errors.append(e)
+        threads = [threading.Thread(target=search, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not errors and not any(t.is_alive() for t in threads)
+        for ids, scores in got:
+            np.testing.assert_array_equal(ids, want[0])
+            np.testing.assert_array_equal(scores, want[1])
+        index.delete_many(list(range(round_, 300, 5)))
+
+
 def _bag_operands(rng, V, D, B, F, dtype, cuda, aligned=True):
     table = _cells(rng, (V, D), dtype).to(cuda)
     if not aligned:          # the same rows, one element past an aligned base
