@@ -568,8 +568,20 @@ def main(argv=None) -> int:
                         dense_counts, linscan_counts, lat, t_start,
                         dense_ptxas)
 
+    # -- 7. the front door over phase 5's index ---------------------------------
+    frontdoor_counts, frontdoor_line = frontdoor_path(
+        server, index, q_idx, q_val, lat, card)
+
+    # -- 8. the tiered index beside the resident one ----------------------------
+    del staged, dense, res_f, cv, cs, rv, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiered_counts, tiered_line = tiered_path(
+        index, corpus_idx, corpus_val, churn, q_idx, q_val, args.seed, dev,
+        card)
+
     # -- 4c. the evaluation path (after the served index is freed) -------------
-    del index, server, staged, dense, res_f, cv, cs, rv, rs
+    del index, server
     gc.collect()
     torch.cuda.empty_cache()
     eval_path(corpus_idx, corpus_val, q_idx[:256], q_val[:256], args.seed,
@@ -589,6 +601,8 @@ def main(argv=None) -> int:
     kernel_rows.append(d_row)
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
+        row["launches_frontdoor"] = frontdoor_counts[row["name"]]
+        row["launches_tiered"] = tiered_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -598,6 +612,8 @@ def main(argv=None) -> int:
                              f"{PEAK_MEMORY_MAX / 1e9:.0f} GB")
     print(json.dumps({"recsys": recsys_line}), flush=True)
     print(json.dumps({"durable": durable_line}), flush=True)
+    print(json.dumps({"frontdoor": frontdoor_line}), flush=True)
+    print(json.dumps({"tiered": tiered_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1102,6 +1118,387 @@ def durable_run(doc_idx, doc_val, q_idx, q_val, seed, dev, scratch):
         f"{out['first_batch_ms']:.2f} ms, p50 {out['p50_ms_b256']:.2f} ms "
         f"over {DURABLE_BATCHES}; peak {peak / 2**30:.2f} GiB; phase "
         f"{out['wall_s']:.1f}s")
+    return counts, out
+
+
+def frontdoor_path(server, index, q_idx, q_val, lat, card):
+    """Phase 7: ``ServingFrontend`` over phase 5's ``QueryServer``.
+
+    (a) 16 client threads submit 256 queries (max_batch=16, 2 ms window,
+    query_pad=32): ids and scores bit-equal to ``query()`` once per query,
+    ids equal to one ``query_many`` at B=256; (b) ``loadgen.run_point`` with
+    64 clients: a saturation point offered 50,000 q/s for 3 s (achieved X),
+    then 0.25·X, 0.5·X and 0.9·X for 3 s each (device busy share under
+    torch.profiler at 0.5·X); (c) a ``FrontendServer`` on 127.0.0.1:0
+    answers 64 POSTs equal to (a), ``/metrics`` parses, ``/readyz`` is 200;
+    (d) A and B's rerank launch, C, D and the LinScan do not.  Also the
+    cost of the all-padding dummy rows: kernel A's search at B=16 with 4
+    live rows against the 4 rows alone.  Returns (launch counts, numbers).
+    """
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core import engine as eng
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs.metrics import parse_exposition
+    from repro_torch.serving import loadgen
+    from repro_torch.serving.frontend import FrontendServer, ServingFrontend
+
+    t_phase = time.perf_counter()
+    qi = q_idx[:256].cpu().numpy()
+    qv = q_val[:256].cpu().numpy()
+    queries = [(qi[b], qv[b]) for b in range(256)]
+    single = [server.query(qi[b], qv[b]) for b in range(256)]
+    whole = server.query_many(qi, qv)
+    out = {"card": card}
+
+    def front(reg):
+        return ServingFrontend(server, max_batch=16, batch_window_ms=2.0,
+                               query_pad=32, registry=reg)
+
+    def batch_fill(reg):
+        h = json.loads(reg.to_json())["repro_frontend_batch_size"]["series"]
+        return h[0]["sum"] / h[0]["count"] if h and h[0]["count"] else None
+
+    kernels.reset_launch_counts()
+    # (a) coalescing on the card
+    reg = MetricsRegistry()
+    fe = front(reg)
+    got = [None] * 256
+    try:
+        def client(c):
+            for b in range(c, 256, 16):
+                got[b] = fe.query(*queries[b])
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(16)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        fe.close()
+    for b in range(256):
+        if not (np.array_equal(got[b].ids, single[b].ids)
+                and np.array_equal(got[b].scores, single[b].scores)
+                and np.array_equal(got[b].ids, whole.ids[b])):
+            raise AssertionError(f"front door answer {b} != query() / "
+                                 f"query_many at B=256")
+    out["coalesce"] = {"queries": 256, "clients": 16, "wall_s": wall,
+                       "mean_batch_fill": batch_fill(reg)}
+    log(f"[7 frontdoor] 256 queries from 16 threads through "
+        f"ServingFrontend(max_batch=16, 2 ms, query_pad=32): ids and scores "
+        f"bit-equal to query() per query and ids to one query_many at "
+        f"B=256; mean batch fill {out['coalesce']['mean_batch_fill']:.2f}")
+
+    # (b) load points
+    def point(offered, profile=False):
+        reg = MetricsRegistry()
+        fe = front(reg)
+        try:
+            call = loadgen.frontend_client(fe)
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as prof_ctx
+                with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+                    p = loadgen.run_point(call, queries, offered, clients=64,
+                                          duration_s=3.0)
+                    torch.cuda.synchronize()
+                busy = sum(e.self_device_time_total
+                           for e in prof.key_averages()) / 1e3
+            else:
+                p = loadgen.run_point(call, queries, offered, clients=64,
+                                      duration_s=3.0)
+        finally:
+            fe.close()
+        row = p.to_row()
+        row["wall_s"] = p.duration_s
+        row["mean_batch_fill"] = batch_fill(reg)
+        if profile:
+            row["device_busy_share"] = (busy / (p.duration_s * 1e3)
+                                        if busy else None)
+        log(f"[7 frontdoor] offered {offered:.1f} q/s: achieved "
+            f"{row['achieved_qps']:.1f}, goodput {row['goodput_qps']:.1f} "
+            f"q/s, p50/p99/p999 {row['p50_ms']:.3f} / {row['p99_ms']:.3f} "
+            f"/ {row['p999_ms']:.3f} ms, rejected {row['rejected']}, "
+            f"expired {row['expired']}, errors {row['errors']}, mean batch "
+            f"fill {row['mean_batch_fill']:.2f}"
+            + (f", device busy {row['device_busy_share']:.3f}"
+               if profile and row["device_busy_share"] is not None else ""))
+        if row["errors"]:
+            raise AssertionError(f"{row['errors']} front-door errors at "
+                                 f"{offered} q/s")
+        return row
+
+    sat = point(50_000.0)
+    x = sat["achieved_qps"]
+    out["load"] = {"saturation": sat,
+                   "0.25X": point(0.25 * x), "0.5X": point(0.5 * x, True),
+                   "0.9X": point(0.9 * x),
+                   "closed_loop_B16_p50_ms": lat["fused B=16"]["p50"]}
+
+    # (c) HTTP
+    reg = MetricsRegistry()
+    fe = front(reg)
+    try:
+        with FrontendServer(fe, host="127.0.0.1", port=0,
+                            registry=reg) as door:
+            docs = [None] * 64
+
+            def poster(c):
+                for b in range(c, 64, 16):
+                    body = json.dumps({"indices": qi[b].tolist(),
+                                       "values": qv[b].tolist()}).encode()
+                    req = urllib.request.Request(door.url + "/v1/query",
+                                                 data=body, method="POST")
+                    docs[b] = json.loads(urllib.request.urlopen(
+                        req, timeout=60).read())
+            threads = [threading.Thread(target=poster, args=(c,))
+                       for c in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            for b in range(64):
+                if docs[b]["ids"] != got[b].ids.tolist() or not np.array_equal(
+                        np.asarray(docs[b]["scores"], np.float32),
+                        got[b].scores):
+                    raise AssertionError(f"HTTP answer {b} != in-process")
+            scrape = urllib.request.urlopen(door.url + "/metrics",
+                                            timeout=60).read().decode()
+            names = {n for n, _ in parse_exposition(scrape)}
+            if not any(n.startswith("repro_frontend_requests_total")
+                       for n in names):
+                raise AssertionError("/metrics lacks the front door's series")
+            ready = urllib.request.urlopen(door.url + "/readyz",
+                                           timeout=60).status
+            if ready != 200:
+                raise AssertionError(f"/readyz answered {ready}")
+    finally:
+        fe.close()
+    log(f"[7 frontdoor] HTTP: 64 POST /v1/query from 16 threads equal the "
+        f"in-process answers; /metrics parses ({len(names)} series); "
+        f"/readyz 200")
+    counts = kernels.launch_counts()
+    check_path_launches(counts, "front door",
+                        ("sinnamon_score_topk", "csr_rerank_topk"),
+                        ("sinnamon_score", "embed_bag", "csr_score"))
+
+    # the all-padding dummy rows of a part-filled dispatch
+    width = q_idx.shape[1]
+    pad_i = torch.full((16, width), -1, dtype=torch.int32,
+                       device=q_idx.device)
+    pad_v = torch.zeros((16, width), dtype=torch.float32,
+                        device=q_idx.device)
+    pad_i[:4], pad_v[:4] = q_idx[:4], q_val[:4]
+    st, spec = index.state, index.spec
+    ms_padded = cuda_ms(lambda: eng.search_batch(st, spec, pad_i, pad_v, K,
+                                                 KPRIME), 20)
+    ms_live = cuda_ms(lambda: eng.search_batch(st, spec, pad_i[:4].clone(),
+                                               pad_v[:4].clone(), K,
+                                               KPRIME), 20)
+    out["dummy_rows"] = {"live": 4, "rows": 16, "search_ms_padded": ms_padded,
+                         "search_ms_live_only": ms_live}
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[7 frontdoor] a B=16 dispatch of 4 live queries and 12 dummy rows "
+        f"{ms_padded:.3f} ms on the card, the 4 alone {ms_live:.3f} ms; "
+        f"launches {counts}; phase {out['wall_s']:.1f}s")
+    return counts, out
+
+
+TIER_BUDGETS_MB = (816, 102)      # phase 8: the whole store, then 1/8 of it
+TIER_BATCHES = 20                 # phase 8: timed batches per batch size
+TIER_DURABLE_DOCS = 65_536        # phase 8: the durable round trip
+
+
+def tiered_path(resident, corpus_idx, corpus_val, churn, q_idx, q_val, seed,
+                dev, card):
+    """Phase 8: phase 5's documents in ``TieredSinnamonIndex`` at
+    ``TIER_BUDGETS_MB`` beside the resident index of phase 4 (same inserts,
+    same churn).  At each budget: 256 queries' ids and scores at B=16 and
+    B=256 bit-equal to the resident index's; 20 batches of each size timed
+    (p50/p99 beside the resident's, tier counters and host-to-device bytes
+    per batch, one staged batch's spans); phase 4's churn applied again to
+    both, each compacted, answers bit-equal again.  Then the durable round
+    trip of ``TIER_DURABLE_DOCS`` documents under ``build/``: tiered ->
+    snapshot -> resident -> tiered, answers equal at every step.  Returns
+    (launch counts of the tiered searches, numbers)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.api import DurabilityConfig, IndexConfig, open_index
+    from repro_torch.serving.serve import QueryServer
+
+    t_phase = time.perf_counter()
+    docs = corpus_idx.shape[0]
+    C = resident.spec.capacity
+    out = {"card": card, "budgets": {}}
+    counts = {}
+    qi, qv = q_idx[:256], q_val[:256]
+
+    def answers(ix, bsz):
+        parts = [ix.search_many(qi[lo:lo + bsz], qv[lo:lo + bsz], k=K,
+                                kprime=KPRIME) for lo in range(0, 256, bsz)]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    def churn_again(ix):
+        ix.delete_many(churn)
+        churn_t = torch.tensor(churn, device=dev)
+        for lo in range(0, len(churn), 32_768):
+            part = churn_t[lo:lo + 32_768]
+            ix.insert_many(part, corpus_idx[part], corpus_val[part])
+        return ix.compact()
+
+    # the resident index's answers as phase 4 left it, then after phase 4's
+    # churn once more and a compact(); each tiered index is held to both
+    want = {bsz: answers(resident, bsz) for bsz in (16, 256)}
+    n_res = churn_again(resident)
+    want_after = {bsz: answers(resident, bsz) for bsz in (16, 256)}
+    res_server = QueryServer(resident, k=K, kprime=KPRIME)
+    for budget in TIER_BUDGETS_MB:
+        t0 = time.perf_counter()
+        tiered = open_index(IndexConfig(n=N, capacity=C, m=M, h=H,
+                                        max_nnz=P, seed=seed,
+                                        device_budget_mb=budget),
+                            device="cuda")
+        for lo in range(0, docs, 32_768):
+            hi = min(lo + 32_768, docs)
+            tiered.insert_many(range(lo, hi), corpus_idx[lo:hi],
+                               corpus_val[lo:hi])
+        tiered.delete_many(churn)
+        churn_t = torch.tensor(churn, device=dev)
+        for lo in range(0, len(churn), 32_768):
+            part = churn_t[lo:lo + 32_768]
+            tiered.insert_many(part, corpus_idx[part], corpus_val[part])
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        tier = tiered.tiered
+        row = {"cache_chunks": tier.cache_chunks, "num_chunks":
+               tier.num_chunks, "cache_bytes": tier.device_bytes(),
+               "host_bytes": tier.host_bytes(), "build_s": t_build}
+        kernels.reset_launch_counts()
+        for bsz in (16, 256):
+            if not same(answers(tiered, bsz), want[bsz]):
+                raise AssertionError(f"tiered ({budget} MiB) answers at "
+                                     f"B={bsz} != the resident index's")
+        server = QueryServer(tiered, k=K, kprime=KPRIME)
+        for bsz in (16, 256):
+            walls, res_walls = [], []
+            s0, b0 = tier.stats(), tier.h2d_bytes
+            for i in range(TIER_BATCHES):
+                lo = (i * bsz) % (512 - bsz + 1)
+                t0 = time.perf_counter()
+                server.query_many(q_idx[lo:lo + bsz], q_val[lo:lo + bsz])
+                walls.append((time.perf_counter() - t0) * 1e3)
+            s1, b1 = tier.stats(), tier.h2d_bytes
+            for i in range(TIER_BATCHES):
+                lo = (i * bsz) % (512 - bsz + 1)
+                t0 = time.perf_counter()
+                res_server.query_many(q_idx[lo:lo + bsz], q_val[lo:lo + bsz])
+                res_walls.append((time.perf_counter() - t0) * 1e3)
+            per = {k: (s1[k] - s0[k]) / TIER_BATCHES
+                   for k in ("hits", "misses", "promotions", "evictions",
+                             "fallbacks")}
+            per["h2d_bytes"] = (b1 - b0) / TIER_BATCHES
+            staged = QueryServer(tiered, k=K, kprime=KPRIME, trace_every=1)
+            staged.query_many(q_idx[:bsz], q_val[:bsz])
+            spans = {sp.name: sp.ms for sp in staged.last_trace.spans}
+            row[f"B={bsz}"] = {"tiered": request_latency(walls, bsz),
+                               "resident": request_latency(res_walls, bsz),
+                               "per_batch": per, "staged_spans_ms": spans}
+            log(f"[8 tiered] {budget} MiB ({tier.cache_chunks} of "
+                f"{tier.num_chunks} chunks) B={bsz}: p50/p99 "
+                f"{row[f'B={bsz}']['tiered']['p50']:.3f} / "
+                f"{row[f'B={bsz}']['tiered']['p99']:.3f} ms (resident "
+                f"{row[f'B={bsz}']['resident']['p50']:.3f} / "
+                f"{row[f'B={bsz}']['resident']['p99']:.3f}); per batch "
+                f"{per}; staged spans " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in spans.items()))
+        for name, n in kernels.launch_counts().items():
+            counts[name] = counts.get(name, 0) + n
+        n_tier = churn_again(tiered)
+        if n_res != n_tier:
+            raise AssertionError(f"compact rebuilt {n_tier} columns, the "
+                                 f"resident index {n_res}")
+        for bsz in (16, 256):
+            if not same(answers(tiered, bsz), want_after[bsz]):
+                raise AssertionError(f"tiered ({budget} MiB) answers after "
+                                     f"churn + compact != the resident's")
+        row["stats"] = tier.stats()
+        out["budgets"][str(budget)] = row
+        log(f"[8 tiered] {budget} MiB: built in {t_build:.1f}s; answers "
+            f"bit-equal to the resident index at B=16 and 256, before and "
+            f"after phase 4's churn + compact ({n_tier} columns); stats "
+            f"{row['stats']}")
+        del tiered, server, staged, tier
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_path_launches(counts, "tiered",
+                        ("sinnamon_score_topk", "csr_rerank_topk"),
+                        ("sinnamon_score", "embed_bag", "csr_score"))
+
+    # the durable round trip: tiered -> snapshot -> resident -> tiered
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="tiered-8-", dir=root)
+    try:
+        n = TIER_DURABLE_DOCS
+        def cfg(budget):
+            return IndexConfig(
+                n=N, capacity=n, m=M, h=H, max_nnz=P, seed=seed,
+                device_budget_mb=budget, durability=DurabilityConfig(
+                    wal_dir=os.path.join(scratch, "wal"),
+                    snapshot_dir=os.path.join(scratch, "snap"),
+                    snapshot_keep=1))
+        t0 = time.perf_counter()
+        dt = open_index(cfg(16.0), device="cuda")
+        for lo in range(0, n, 32_768):
+            hi = min(lo + 32_768, n)
+            dt.insert_many(range(lo, hi), corpus_idx[lo:hi],
+                           corpus_val[lo:hi])
+        dt.delete_many(list(range(0, n, 16)))
+        dt.insert_many(list(range(0, n, 16)), corpus_idx[0:n:16],
+                       corpus_val[0:n:16])
+        ref = answers(dt, 16)
+        dt.snapshot()
+        del dt
+        gc.collect()
+        dr = open_index(cfg(None), device="cuda")
+        if not same(answers(dr, 16), ref):
+            raise AssertionError("resident answers from the tiered "
+                                 "snapshot != the tiered index's")
+        dr.compact()                       # a logged op: a newer snapshot
+        ref = answers(dr, 16)
+        dr.snapshot()
+        del dr
+        gc.collect()
+        dt2 = open_index(cfg(16.0), device="cuda")
+        if not same(answers(dt2, 16), ref):
+            raise AssertionError("tiered answers from the resident "
+                                 "snapshot != the resident index's")
+        del dt2
+        out["durable_round_trip"] = {"docs": n,
+                                     "wall_s": time.perf_counter() - t0}
+        log(f"[8 tiered] durable round trip of {n} docs (tiered -> "
+            f"snapshot -> resident -> compact + snapshot -> tiered): answers "
+            f"equal at every step, "
+            f"{out['durable_round_trip']['wall_s']:.1f}s")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[8 tiered] launches {counts}; phase {out['wall_s']:.1f}s")
     return counts, out
 
 

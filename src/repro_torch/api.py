@@ -11,8 +11,11 @@
 It serves the single-device rows of the reference's routing table: an
 ephemeral ``SinnamonIndex``, or with a :class:`DurabilityConfig` a
 ``DurableSinnamonIndex`` that recovers snapshot + WAL tail on open (on disk
-in the reference's formats).  ``shards > 1`` and ``device_budget_mb`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+in the reference's formats); with ``device_budget_mb`` each becomes its
+tiered twin (``TieredSinnamonIndex`` / ``DurableTieredSinnamonIndex``: the
+raw rows in pinned host memory behind a device chunk cache of that many
+MiB).  ``shards > 1`` raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -66,7 +69,10 @@ class IndexConfig:
     ``f32 | bf16 | f8``), ``store_dtype`` (raw rows), ``positive_only``,
     ``index_buckets``, ``seed``.  ``backend`` pins the scoring backend
     (``reference | grouped | fused``, ``pallas`` an alias of ``fused``;
-    None -> ``fused``).
+    None -> ``fused``).  ``device_budget_mb`` caps the device bytes of raw
+    vector rows and serves the tiered index (results bit-identical to the
+    resident one); ``tier_chunk_slots`` is its paging granularity in slots
+    per chunk.
     """
 
     n: int
@@ -83,7 +89,8 @@ class IndexConfig:
     backend: Optional[str] = None
     shards: int = 1
     durability: Optional[object] = None
-    device_budget_mb: Optional[float] = None
+    device_budget_mb: Optional[float] = None   # device raw-store budget
+    tier_chunk_slots: int = 256                # slots per tiering chunk
 
     def __post_init__(self):
         if self.shards < 1:
@@ -93,6 +100,12 @@ class IndexConfig:
         if self.backend is not None:
             from repro_torch.kernels import ops as _ops
             _ops.resolve_backend(self.backend)
+        if self.device_budget_mb is not None and self.device_budget_mb <= 0:
+            raise ValueError(f"device_budget_mb must be positive, "
+                             f"got {self.device_budget_mb}")
+        if self.tier_chunk_slots < 1:
+            raise ValueError(f"tier_chunk_slots must be >= 1, "
+                             f"got {self.tier_chunk_slots}")
 
     @property
     def local_capacity(self) -> int:
@@ -113,9 +126,18 @@ def open_index(config: IndexConfig, device=None) -> eng.SinnamonIndex:
     """Open the index a config describes, on ``device`` (None: the CUDA
     card; raises when there is none unless ``device="cpu"`` is given).
 
-    With ``config.durability`` set it returns
-    ``DurableSinnamonIndex.open(...)``, which recovers what its directories
-    hold.  The returned index carries ``config`` on ``.config`` and
+    ========== ================ =================================
+    durability device_budget_mb returns
+    ========== ================ =================================
+    None       None             ``SinnamonIndex``
+    None       set              ``TieredSinnamonIndex``
+    set        None             ``DurableSinnamonIndex.open``
+    set        set              ``DurableTieredSinnamonIndex.open``
+    ========== ================ =================================
+
+    A durable index recovers what its directories hold.  The tiered cache
+    holds ``int(device_budget_mb * 2**20)`` bytes of rows, rounded down to
+    whole chunks.  The returned index carries ``config`` on ``.config`` and
     ``config.backend`` as its default scoring backend.
     """
     if config.shards > 1:
@@ -123,17 +145,22 @@ def open_index(config: IndexConfig, device=None) -> eng.SinnamonIndex:
             "shards > 1, with or without durability, is not ported yet "
             "(ROADMAP Queue 1 item 11: serving/sharded.py on "
             "torch.distributed, then DurableShardedSinnamonIndex)")
-    if config.device_budget_mb is not None:
-        raise NotImplementedError(
-            "device_budget_mb (tiering), with or without durability, is not "
-            "ported yet (ROADMAP Queue 1 item 10: storage/tiered.py, then "
-            "DurableTieredSinnamonIndex)")
+    spec = config.engine_spec()
+    tkw = dict(tier_chunk_slots=config.tier_chunk_slots,
+               device_budget_bytes=int(config.device_budget_mb * (1 << 20))
+               ) if config.device_budget_mb is not None else None
     if config.durability is not None:
-        from repro_torch.persist import DurableSinnamonIndex
-        index = DurableSinnamonIndex.open(config.engine_spec(), device=device,
-                                          **config.durability.kwargs())
+        from repro_torch.persist import durable
+        if tkw is None:
+            index = durable.DurableSinnamonIndex.open(
+                spec, device=device, **config.durability.kwargs())
+        else:
+            index = durable.DurableTieredSinnamonIndex.open(
+                spec, device=device, **config.durability.kwargs(), **tkw)
+    elif tkw is None:
+        index = eng.SinnamonIndex(spec, device=device)
     else:
-        index = eng.SinnamonIndex(config.engine_spec(), device=device)
+        index = eng.TieredSinnamonIndex(spec, device=device, **tkw)
     index.default_backend = config.backend
     index.config = config
     return index

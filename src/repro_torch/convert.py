@@ -129,11 +129,13 @@ def _on(arr, dtype, device: torch.device) -> torch.Tensor:
 
 
 def state_from_numpy(leaves: dict, spec: eng.EngineSpec,
-                     device=None) -> eng.SinnamonState:
+                     device=None, store_device=None) -> eng.SinnamonState:
     """The port's state from the reference's state leaves (keyed by
     :data:`LEAVES` or by their :data:`SNAPSHOT_KEYS`), on ``device``
-    (None: the CUDA card)."""
+    (None: the CUDA card); the raw store on ``store_device`` (None: on
+    ``device``; the tiered index keeps it on the host)."""
     device = eng.resolve_device(device)
+    sdev = device if store_device is None else torch.device(store_device)
     if ".u" in leaves:
         leaves = {name: leaves.get(key) for name, key in SNAPSHOT_KEYS.items()}
     cell = sketch.torch_cell_dtype(spec.dtype)
@@ -143,16 +145,16 @@ def state_from_numpy(leaves: dict, spec: eng.EngineSpec,
     sk = torch.cat([sketch.cell_bits(p) for p in parts]).to(device)
     values = np.asarray(leaves["store_values"])
     if spec.value_tdtype == torch.float32:
-        vals = _on(values, np.float32, device)
+        vals = _on(values, np.float32, sdev)
     else:
-        vals = cells_from_numpy(values, spec.value_tdtype).to(device)
+        vals = cells_from_numpy(values, spec.value_tdtype).to(sdev)
     bits = np.asarray(leaves["bits"], np.uint32).view(np.int32)
     return eng.SinnamonState(
         mappings=_on(leaves["mappings"], np.int32, device),
         sketch=sk.view(cell),
         bits=_on(bits, np.int32, device),
         store=vecstore.VecStore(
-            indices=_on(leaves["store_indices"], np.int32, device),
+            indices=_on(leaves["store_indices"], np.int32, sdev),
             values=vals),
         active=_on(leaves["active"], bool, device),
         ids=_on(ids_from_packed(leaves["ids"]), np.int64, device),

@@ -158,8 +158,12 @@ class SinnamonState:
 # Functional core
 # ---------------------------------------------------------------------------
 
-def init(spec: EngineSpec, device) -> SinnamonState:
-    """Fresh, empty state on ``device``."""
+def init(spec: EngineSpec, device,
+         store_rows: Optional[int] = None) -> SinnamonState:
+    """Fresh, empty state on ``device``.  ``store_rows=0`` gives a zero-row
+    store placeholder: the tiered index keeps the raw rows in a
+    :class:`repro_torch.storage.tiered.TieredVecStore`, and the writes of
+    the functional core skip an empty store."""
     sp = spec.sketch_spec
     return SinnamonState(
         mappings=torch.from_numpy(sketch.make_mappings(
@@ -167,7 +171,8 @@ def init(spec: EngineSpec, device) -> SinnamonState:
         sketch=torch.zeros((sp.sketch_rows, spec.capacity), dtype=sp.tdtype,
                            device=device),
         bits=bitindex.empty(spec.bit_rows, spec.capacity, device),
-        store=vecstore.empty(spec.capacity, spec.max_nnz,
+        store=vecstore.empty(spec.capacity if store_rows is None
+                             else store_rows, spec.max_nnz,
                              dtype=spec.value_tdtype, device=device),
         active=torch.zeros((spec.capacity,), dtype=torch.bool, device=device),
         ids=torch.full((spec.capacity,), -1, dtype=torch.int64,
@@ -257,7 +262,8 @@ def insert_batch_masked(state: SinnamonState, spec: EngineSpec, slots: Tensor,
         merged = _merge_cells(old, new, upper)
         _ints(side)[:, s] = torch.where(was_dirty, _ints(merged), _ints(new))
 
-    vecstore.write(state.store, s, idx, val)
+    if state.store.capacity:            # a tiered placeholder holds no rows
+        vecstore.write(state.store, s, idx, val)
     state.active[s] = True
     state.ids[s] = ext_ids.to(torch.int64)
     return state
@@ -277,7 +283,8 @@ def delete_batch_rows(state: SinnamonState, spec: EngineSpec, slots: Tensor,
     rows, words, bitm = _bit_scatter_operands(spec, slots, idx, mask)
     state.bits.index_put_((rows, words), -bitm, accumulate=True)
     s, = _select(mask, slots)
-    vecstore.erase(state.store, s)
+    if state.store.capacity:
+        vecstore.erase(state.store, s)
     state.active[s] = False
     state.ids[s] = -1
     state.dirty[s] = True
@@ -314,12 +321,14 @@ def grow_state(state: SinnamonState, spec: EngineSpec,
     """A new state at ``new_spec.capacity`` with every per-slot axis copied
     over (slot numbering preserved)."""
     c = spec.capacity
-    st = init(new_spec, state.device)
+    placeholder = state.store.capacity == 0         # tiered: stays empty
+    st = init(new_spec, state.device, store_rows=0 if placeholder else None)
     st.mappings = state.mappings
     _ints(st.sketch)[:, :c] = _ints(state.sketch)
     st.bits[:, :c // bitindex.WORD] = state.bits
-    st.store.indices[:c] = state.store.indices
-    st.store.values[:c] = state.store.values
+    if not placeholder:
+        st.store.indices[:c] = state.store.indices
+        st.store.values[:c] = state.store.values
     st.active[:c] = state.active
     st.ids[:c] = state.ids
     st.dirty[:c] = state.dirty
@@ -380,6 +389,60 @@ def slot_drift(state: SinnamonState, spec: EngineSpec) -> Tensor:
         over = torch.maximum(
             over, (l_f.to(f32) - state.l.to(f32)).clamp_min(0.0).amax(dim=0))
     return torch.where(state.active, over, 0.0)
+
+
+def fresh_cells_rows(state: SinnamonState, spec: EngineSpec, idx_rows: Tensor,
+                     val_rows: Tensor) -> Tensor:
+    """The stacked fresh sketch columns of raw rows ``idx_rows`` /
+    ``val_rows`` [B, P] (on the state's device), as the integer bit patterns
+    of their cells, [R, B]: column b is :func:`fresh_cells`' column of a
+    slot holding row b (an erased row encodes to a zero column)."""
+    u, l = sketch.encode_batch(state.mappings, spec.m, idx_rows,
+                               val_rows.to(torch.float32), dtype=spec.dtype,
+                               positive_only=spec.upper_only)
+    u = _ints(u.T)
+    return u if l is None else torch.cat([u, _ints(l.T)])
+
+
+def apply_compaction_rows(state: SinnamonState, slots: Tensor,
+                          cells: Tensor) -> SinnamonState:
+    """Write :func:`fresh_cells_rows` columns ``cells`` [R, B] into
+    ``slots`` [B] and clear their dirty flags, in place; returns ``state``."""
+    s = slots.long()
+    _ints(state.sketch)[:, s] = cells
+    state.dirty[s] = False
+    return state
+
+
+def compact_slots_rows(state: SinnamonState, spec: EngineSpec, slots: Tensor,
+                       idx_rows: Tensor, val_rows: Tensor,
+                       mask: Optional[Tensor] = None) -> SinnamonState:
+    """Rebuild the sketch columns of ``slots`` from their raw rows, in place
+    (the reference's ``compact_slots_rows``): the rows-based twin of
+    :func:`compact_state` for a store whose rows live off the device.
+    ``mask=False`` entries are no-ops.  Rebuilding the dirty set this way
+    gives :func:`compact_state`'s cells bit for bit."""
+    if mask is not None:
+        sel = mask.nonzero().squeeze(1)
+        slots, idx_rows, val_rows = slots[sel], idx_rows[sel], val_rows[sel]
+    return apply_compaction_rows(
+        state, slots, fresh_cells_rows(state, spec, idx_rows, val_rows))
+
+
+def slot_drift_rows(state: SinnamonState, spec: EngineSpec, slots: Tensor,
+                    idx_rows: Tensor, val_rows: Tensor) -> Tensor:
+    """:func:`slot_drift` of ``slots`` [B] from their raw rows, f32[B]."""
+    u_f, l_f = sketch.encode_batch(state.mappings, spec.m, idx_rows,
+                                   val_rows.to(torch.float32),
+                                   dtype=spec.dtype,
+                                   positive_only=spec.upper_only)
+    s = slots.long()
+    f32 = torch.float32
+    over = (state.u[:, s].to(f32) - u_f.T.to(f32)).clamp_min(0.0).amax(dim=0)
+    if state.l is not None:
+        over = torch.maximum(over, (l_f.T.to(f32) - state.l[:, s].to(f32))
+                             .clamp_min(0.0).amax(dim=0))
+    return torch.where(state.active[s], over, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -504,6 +567,38 @@ def rerank_topk(state: SinnamonState, cand_scores: Tensor, cand_slots: Tensor,
         q_val.to(torch.float32).contiguous(), state.store.indices,
         state.store.values, state.ids, cand_scores.contiguous(),
         cand_slots.contiguous(), k, use_kernel=use_kernel)
+
+
+def rerank_topk_rows(state: SinnamonState, cand_scores: Tensor,
+                     cand_slots: Tensor, rows_idx: Tensor, rows_val: Tensor,
+                     q_idx: Tensor, q_val: Tensor, k: int,
+                     use_kernel: Optional[bool] = None):
+    """:func:`rerank_topk` with the candidates' CSR rows passed in
+    (``rows_idx`` / ``rows_val`` [B·K', P] or [B, K', P], candidate-major:
+    the tiered path's ``TieredVecStore.gather_rows``).
+
+    The same wrapper, unchanged: the gathered rows are its store, each
+    candidate's position b·K' + j its slot and ``state.ids`` of its real
+    slot its id; the positions it returns map back through ``cand_slots``.
+    A row's score does not depend on where the row lies, so the answer is
+    :func:`rerank_topk`'s bit for bit.  Returns (ids int64[B, k],
+    scores f32[B, k], slots int32[B, k]).
+    """
+    from repro_torch.kernels import csr_rerank as _rr
+
+    B, Kp = cand_slots.shape
+    flat = cand_slots.reshape(-1)
+    P = rows_idx.shape[-1]
+    pos = torch.arange(B * Kp, dtype=torch.int32,
+                       device=cand_slots.device).view(B, Kp)
+    ids, scores, at = _rr.csr_rerank_topk(
+        q_idx.to(torch.int32).contiguous(),
+        q_val.to(torch.float32).contiguous(),
+        rows_idx.reshape(B * Kp, P).contiguous(),
+        rows_val.reshape(B * Kp, P).contiguous(),
+        state.ids[flat.long()], cand_scores.contiguous(), pos, k,
+        use_kernel=use_kernel)
+    return ids, scores, flat[at.long()]
 
 
 def search_batch(state, spec, q_idx, q_val, k, kprime, budget=None,
@@ -756,13 +851,24 @@ class SinnamonIndex:
             while len(self._free) < bn:
                 self.grow(self.spec.capacity * 2)
             slots = np.array([self._free.pop() for _ in range(bn)], np.int32)
-            insert_batch_masked(
-                self.state, self.spec, self._tensor(slots, torch.int32),
-                self._tensor(np.asarray(ext_ids, np.int64), torch.int64),
-                idx_t, val_t)
+            self._write_insert(slots, ext_ids, idx_t, val_t)
             for eid, slot in zip(ext_ids, slots):
                 self._id2slot[eid] = int(slot)
         return bn
+
+    def _write_insert(self, slots: np.ndarray, ext_ids, idx_t: Tensor,
+                      val_t: Tensor) -> None:
+        """Write documents into free ``slots`` (the state lock held)."""
+        insert_batch_masked(
+            self.state, self.spec, self._tensor(slots, torch.int32),
+            self._tensor(np.asarray(ext_ids, np.int64), torch.int64),
+            idx_t, val_t)
+
+    def _write_delete(self, slots) -> None:
+        """Clear the documents at ``slots`` (the state lock held)."""
+        delete_batch_masked(self.state, self.spec,
+                            self._tensor(np.asarray(slots, np.int32),
+                                         torch.int32))
 
     def delete(self, ext_id: int) -> None:
         t0 = time.perf_counter()
@@ -789,9 +895,7 @@ class SinnamonIndex:
             if not ext_ids:
                 return 0
             slots = [self._id2slot.pop(e) for e in ext_ids]
-            delete_batch_masked(self.state, self.spec,
-                                self._tensor(np.asarray(slots, np.int32),
-                                             torch.int32))
+            self._write_delete(slots)
             self._free.extend(slots)
         return len(ext_ids)
 
@@ -877,15 +981,35 @@ class SinnamonIndex:
         t0 = time.perf_counter()
         n_dirty = int(self.state.dirty.sum())
         if n_dirty:
-            fresh = fresh_cells(self.state, self.spec)
+            fresh = self._fresh_compaction(self.state)
             with self._state_lock.write():
-                apply_compaction(self.state, fresh)
+                self._apply_compaction(fresh)
         self._obs.record("compact", t0)
         return n_dirty
+
+    def _fresh_compaction(self, state: SinnamonState):
+        """The re-encoded cells a compaction of ``state`` writes in (only
+        reads ``state``; no lock needed)."""
+        return fresh_cells(state, self.spec)
+
+    def _apply_compaction(self, fresh) -> None:
+        """Write :meth:`_fresh_compaction`'s cells in (the state lock
+        held to write)."""
+        apply_compaction(self.state, fresh)
 
     def slot_drift(self) -> np.ndarray:
         """Per-slot sketch overestimate against a fresh sketch (f32[C])."""
         return slot_drift(self.state, self.spec).cpu().numpy()
+
+    # -- persistence hooks (repro_torch.persist.snapshot) --------------------
+    def logical_state(self) -> SinnamonState:
+        """The state a snapshot stores: the whole raw store included."""
+        return self.state
+
+    def adopt_logical_state(self, state: SinnamonState) -> None:
+        """Install a restored :meth:`logical_state` (the state lock held to
+        write by the caller)."""
+        self.state = state
 
     @property
     def size(self) -> int:
@@ -909,3 +1033,140 @@ class SinnamonIndex:
         }
         out["index_total"] = out["sketch"] + out["inverted_index"]
         return out
+
+
+class TieredSinnamonIndex(SinnamonIndex):
+    """:class:`SinnamonIndex` whose raw store is hot/cold tiered
+    (counterpart of ``repro.core.engine.TieredSinnamonIndex``).
+
+    The sketch, bitmap, ``active``, ``ids`` and ``dirty`` stay on the
+    device; ``state.store`` is a zero-row placeholder and the raw CSR rows
+    live in a :class:`repro_torch.storage.tiered.TieredVecStore` (pinned
+    host backing behind a bounded device chunk cache), so the corpus can
+    outgrow the device budget.  A search is the resident candidate
+    generation, a host sync of the ``[B, k']`` candidate slots that drives
+    chunk promotion, then :func:`rerank_topk_rows` over the gathered rows:
+    the same rerank kernel on the same rows, so the answers are the
+    resident index's bit for bit.  ``search`` is ``search_many`` at B = 1,
+    as on the resident port.  Maintenance (compact, slot_drift) reads the
+    dirty rows from the host backing in blocks of ``_MAINT_BLOCK`` slots;
+    ``slot_drift`` reports 0 for clean slots (only the dirty set is
+    evaluated).  The store's lock is always taken inside the state lock.
+    """
+
+    _MAINT_BLOCK = 256           # dirty-slot rows per maintenance step
+
+    def __init__(self, spec: EngineSpec, device=None, *,
+                 tier_chunk_slots: int = 256,
+                 device_budget_bytes: Optional[int] = None,
+                 cache_chunks: Optional[int] = None):
+        from repro_torch.storage import tiered as tiered_mod
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.default_backend = None
+        self.tiered = tiered_mod.TieredVecStore(
+            spec.capacity, spec.max_nnz, value_dtype=spec.value_tdtype,
+            chunk_slots=tier_chunk_slots,
+            device_budget_bytes=device_budget_bytes,
+            cache_chunks=cache_chunks, device=self.device)
+        self.state = init(spec, self.device, store_rows=0)
+        self._free = list(range(spec.capacity - 1, -1, -1))
+        self._id2slot = {}
+        self._state_lock = StateLock()
+        self._obs = _WritePathMetrics()
+
+    def _placeholder_store(self) -> vecstore.VecStore:
+        return vecstore.empty(0, self.spec.max_nnz,
+                              dtype=self.spec.value_tdtype,
+                              device=self.device)
+
+    # -- streaming updates ---------------------------------------------------
+    def _write_insert(self, slots, ext_ids, idx_t, val_t) -> None:
+        # Host backing first (write-through), its chunks pinned until the
+        # sketch/bitmap update of this batch is issued.
+        chunks = self.tiered.write_rows(slots, idx_t, val_t, pin=True)
+        try:
+            super()._write_insert(slots, ext_ids, idx_t, val_t)
+        finally:
+            self.tiered.unpin(chunks)
+
+    def _write_delete(self, slots) -> None:
+        rows = self.tiered.read_indices(slots).to(self.device)
+        delete_batch_rows(self.state, self.spec,
+                          self._tensor(np.asarray(slots, np.int32),
+                                       torch.int32), rows)
+        self.tiered.erase_rows(slots)
+
+    # -- retrieval -----------------------------------------------------------
+    def search_many(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
+                    budget: Optional[int] = None, filter_mask=None,
+                    score_fn=None, backend: Optional[str] = None):
+        """Batched search: candidates, a host sync of their slots that
+        drives promotion, then the rows-based rerank."""
+        k, kprime = self._sizes(k, kprime)
+        with self._state_lock.read():
+            qi = self._tensor(q_idx, torch.int32)
+            qv = self._tensor(q_val, torch.float32)
+            ub, slots = topk_candidates(
+                self.state, self.spec, qi, qv, kprime, budget,
+                self._filter(filter_mask), score_fn=score_fn,
+                backend=self._backend(backend))
+            ridx, rval = self.tiered.gather_rows(slots)
+            ids, scores, _ = rerank_topk_rows(self.state, ub, slots, ridx,
+                                              rval, qi, qv, k)
+            return ids.cpu().numpy(), scores.cpu().numpy()
+
+    # -- capacity / maintenance ----------------------------------------------
+    def grow(self, new_capacity: int) -> None:
+        with self._state_lock.write():
+            super().grow(new_capacity)      # grow_state keeps the placeholder
+            self.tiered.grow(new_capacity)
+
+    def _dirty_blocks(self, state: SinnamonState):
+        """(slots, idx rows, val rows) on the device, for each block of at
+        most ``_MAINT_BLOCK`` dirty slots of ``state``, rows read from the
+        host backing."""
+        dirty = state.dirty.nonzero().squeeze(1).cpu().numpy()
+        for lo in range(0, dirty.size, self._MAINT_BLOCK):
+            blk = dirty[lo:lo + self._MAINT_BLOCK]
+            ridx, rval = self.tiered.read_rows(blk)
+            yield (torch.from_numpy(blk).to(self.device),
+                   ridx.to(self.device), rval.to(self.device))
+
+    def _fresh_compaction(self, state: SinnamonState):
+        return [(s, fresh_cells_rows(state, self.spec, ri, rv))
+                for s, ri, rv in self._dirty_blocks(state)]
+
+    def _apply_compaction(self, fresh) -> None:
+        for slots, cells in fresh:
+            apply_compaction_rows(self.state, slots, cells)
+
+    def slot_drift(self) -> np.ndarray:
+        out = torch.zeros((self.spec.capacity,), dtype=torch.float32,
+                          device=self.device)
+        for slots, ri, rv in self._dirty_blocks(self.state):
+            out[slots] = slot_drift_rows(self.state, self.spec, slots, ri, rv)
+        return out.cpu().numpy()
+
+    def memory_bytes(self) -> dict:
+        out = super().memory_bytes()
+        out["storage"] = self.tiered.device_bytes()       # device-resident
+        out["storage_host"] = self.tiered.host_bytes()    # cold backing
+        return out
+
+    # -- persistence hooks ---------------------------------------------------
+    def logical_state(self) -> SinnamonState:
+        """The state with the whole raw store spliced in as CPU tensors —
+        what a snapshot stores, so tiered and resident snapshots are one
+        format."""
+        idx, val = self.tiered.to_tensors()
+        return dataclasses.replace(self.state,
+                                   store=vecstore.VecStore(idx, val))
+
+    def adopt_logical_state(self, state: SinnamonState) -> None:
+        """Install a restored logical state: the raw rows go to the host
+        backing (tiering state reset to access-free defaults), the rest
+        stays where it is with the placeholder store."""
+        self.tiered.load_rows(state.store.indices, state.store.values)
+        self.state = dataclasses.replace(state,
+                                         store=self._placeholder_store())

@@ -174,7 +174,8 @@ class _DurableOps:
                 path = snaplib.step_path(self.snapshot_dir, ms[1])
             else:
                 t_copy = time.perf_counter()
-                arrays = convert.state_to_numpy(self.state, self.spec)
+                arrays = convert.state_to_numpy(self.logical_state(),
+                                                self.spec)
                 t_write = time.perf_counter()
                 path = snaplib.save(self.snapshot_dir, self, self._last_lsn,
                                     keep=self.snapshot_keep, arrays=arrays)
@@ -224,11 +225,11 @@ class _DurableOps:
         """
         with self._lock:
             mark = self._mutations
-            st, spec = self.state, self.spec
+            st = self.state
         n_dirty = int(st.dirty.sum())
         if not n_dirty:
             return 0
-        fresh = eng.fresh_cells(st, spec)
+        fresh = self._fresh_compaction(st)
         # Failpoint: stall widens the optimistic-race window (a mutation
         # lands first and the swap is skipped); error models the rebuild
         # itself failing and takes the compactor's error path.
@@ -240,7 +241,7 @@ class _DurableOps:
                 self._append(0, wal.KIND_COMPACT, {})
             self._mutations += 1
             with self._state_lock.write():
-                eng.apply_compaction(self.state, fresh)
+                self._apply_compaction(fresh)
         return n_dirty
 
     # -- recovery -------------------------------------------------------------
@@ -482,3 +483,41 @@ class DurableSinnamonIndex(_DurableOps, eng.SinnamonIndex):
                     "capacity": np.asarray(new_capacity, np.int64)})
             self._mutations += 1
             super().grow(new_capacity)
+
+
+class DurableTieredSinnamonIndex(DurableSinnamonIndex,
+                                 eng.TieredSinnamonIndex):
+    """WAL + snapshot durability over the tiered single-device index
+    (counterpart of ``repro.persist.durable.DurableTieredSinnamonIndex``).
+
+    The WAL logs logical operations only, so its bytes are the resident
+    index's: tiering is invisible to the durability layer.  Snapshots go
+    through ``logical_state()`` (the whole raw store spliced back in) and
+    restores through ``adopt_logical_state()`` (rows to the host backing,
+    chunk-cache heat reset), so tiered and resident snapshots — the JAX
+    package's included — restore into each other.  The optimistic
+    compaction re-encodes the dirty columns from the host backing
+    (``TieredSinnamonIndex._fresh_compaction``, the rows-based twin of the
+    resident re-encode) without touching ``self.state``.
+    """
+
+    def __init__(self, spec: eng.EngineSpec, *, wal_dir: str,
+                 snapshot_dir: Optional[str] = None,
+                 tier_chunk_slots: int = 256,
+                 device_budget_bytes: Optional[int] = None,
+                 cache_chunks: Optional[int] = None,
+                 fsync: bool = True, segment_bytes: int = 4 << 20,
+                 snapshot_every: Optional[int] = None,
+                 compact_threshold: Optional[float] = None,
+                 compact_check_every: int = 64,
+                 snapshot_keep: int = 3, device=None):
+        eng.TieredSinnamonIndex.__init__(
+            self, spec, device=device, tier_chunk_slots=tier_chunk_slots,
+            device_budget_bytes=device_budget_bytes,
+            cache_chunks=cache_chunks)
+        self._init_durable(wal_dir=wal_dir, snapshot_dir=snapshot_dir,
+                           fsync=fsync, segment_bytes=segment_bytes,
+                           snapshot_every=snapshot_every,
+                           compact_threshold=compact_threshold,
+                           compact_check_every=compact_check_every,
+                           snapshot_keep=snapshot_keep)

@@ -59,7 +59,7 @@ def save(snap_dir: str, index, wal_lsn: int, keep: int = 3,
     (default: :func:`convert.state_to_numpy` of ``index.state``).
     """
     if arrays is None:
-        arrays = convert.state_to_numpy(index.state, index.spec)
+        arrays = convert.state_to_numpy(index.logical_state(), index.spec)
     extra = {
         "format": FORMAT,
         "kind": "single",
@@ -201,9 +201,13 @@ def apply_single(index: eng.SinnamonIndex, arrays: dict, extra: dict) -> int:
     if extra["kind"] != "single":
         return _reinsert_live(index, arrays, extra)
     spec = _spec_from(extra["spec"])
+    # a tiered index keeps the raw rows on the host
+    store_device = "cpu" if isinstance(index, eng.TieredSinnamonIndex) \
+        else None
     with index._state_lock.write():
         index.spec = spec
-        index.state = convert.state_from_numpy(arrays, spec, index.device)
+        index.adopt_logical_state(convert.state_from_numpy(
+            arrays, spec, index.device, store_device=store_device))
         index._id2slot = {int(k): int(v) for k, v in extra["id2slot"].items()}
         index._free = [int(s) for s in extra["free"]]
     return int(extra["wal_lsn"])

@@ -35,6 +35,11 @@ from repro_torch.serving.results import QueryResult
 #: Stage names of the staged (traced) query path, in order.
 QUERY_STAGES = ("admission", "sketch_scan", "topk_merge", "rerank")
 
+#: Stage names of the staged path over a tiered index: candidates (their
+#: slots synced to the host), the chunk-cache promotion and row gather of
+#: the candidates (``prefetch``), then the rows-based rerank.
+TIERED_QUERY_STAGES = ("admission", "sketch_scan", "prefetch", "rerank")
+
 
 class QueryServer:
     """Serves one single-device :class:`SinnamonIndex` (durable or not).
@@ -249,6 +254,8 @@ class QueryServer:
         """The production search as separate synced steps, one span each;
         results equal ``index.search_many``'s (same operands, same kernels,
         same rerank)."""
+        if isinstance(self.index, eng.TieredSinnamonIndex):
+            return self._staged_tiered(q_idx, q_val, trace)
         index = self.index
         backend = self._backend_label()
         with index._state_lock.read():
@@ -279,6 +286,30 @@ class QueryServer:
                 out_ids, out_scores = ids.cpu().numpy(), scores.cpu().numpy()
         return out_ids, out_scores
 
+    def _staged_tiered(self, q_idx, q_val, trace: Trace):
+        """A tiered index (see :data:`TIERED_QUERY_STAGES`): the index's own
+        candidate, gather and rerank steps, so staged results equal
+        ``index.search_many``'s bit for bit."""
+        index = self.index
+        with index._state_lock.read():
+            with trace.span("admission"):
+                spec, state = index.spec, index.state
+                k, kprime = index._sizes(self.k, self.kprime)
+                qi = index._tensor(q_idx, torch.int32)
+                qv = index._tensor(q_val, torch.float32)
+            with trace.span("sketch_scan"):
+                ub, slots = eng.topk_candidates(
+                    state, spec, qi, qv, kprime, self.budget,
+                    backend=index._backend(self.score_backend))
+                slots_host = slots.cpu()                 # host sync
+            with trace.span("prefetch"):
+                ridx, rval = index.tiered.gather_rows(slots, slots_host)
+            with trace.span("rerank"):
+                ids, scores, _ = eng.rerank_topk_rows(state, ub, slots, ridx,
+                                                      rval, qi, qv, k)
+                out_ids, out_scores = ids.cpu().numpy(), scores.cpu().numpy()
+        return out_ids, out_scores
+
     # -- stats ---------------------------------------------------------------
     def latency_percentiles(self) -> dict:
         """p50 / p90 / p99 per-query latency (ms) from the registry's
@@ -301,6 +332,6 @@ class QueryServer:
         self.stats["queries"] = 0
         self.last_trace = None
         self._latency_hist(backend).reset()
-        for stage in QUERY_STAGES:
+        for stage in QUERY_STAGES + TIERED_QUERY_STAGES:
             self._hist("repro_query_stage_ms", "",
                        labels={"stage": stage, "backend": backend}).reset()

@@ -764,3 +764,116 @@ def test_rerank_topk_is_one_launch_and_no_csr_score(cuda):
     teng.search_batch(index.state, spec, *q, 10, 60)
     counts = launch_counts()
     assert counts["csr_rerank_topk"] == 1 and counts["csr_score"] == 0
+
+
+# -- the tiered rerank, the front door and the tiered index on the card -------
+
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Kp", [(1, 800), (16, 800), (256, 800), (3, 130)])
+def test_rerank_topk_rows_matches_twin_and_resident(cuda, vdt, B, Kp):
+    """``engine.rerank_topk_rows`` over gathered rows: one launch of the
+    unchanged rerank kernel, bit-equal to ``rerank_topk`` on the resident
+    store (a row's score does not depend on where it lies), and within the
+    twin's tolerance of the twin on the same rows."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(B + Kp)
+    qi, qv, idx, val, ids, cand, slots = _rerank_operands(
+        rng, B, Kp, 4096, 128, 30_000, vdt, cuda)
+    state = teng.SinnamonState(
+        mappings=None, sketch=torch.zeros((1, 4096), device=cuda), bits=None,
+        store=teng.vecstore.VecStore(idx, val), active=None, ids=ids,
+        dirty=None, m=1)
+    flat = slots.reshape(-1).long()
+    rows_i, rows_v = idx[flat], val[flat]
+    reset_launch_counts()
+    got = teng.rerank_topk_rows(state, cand, slots, rows_i, rows_v, qi, qv,
+                                10)
+    assert launch_counts()["csr_rerank_topk"] == 1
+    res = teng.rerank_topk(state, cand, slots, qi, qv, 10)
+    torch.cuda.synchronize()
+    for g, w in zip(got, res):
+        assert torch.equal(g, w)
+    twin = teng.rerank_topk_rows(state, cand, slots, rows_i, rows_v, qi, qv,
+                                 10, use_kernel=False)
+    _assert_rerank_close(got, twin)
+
+
+def _card_index(cuda, cls=teng.SinnamonIndex, **kw):
+    ds = synth.SparseDatasetSpec("t", n=2_000, psi_doc=40, psi_query=20)
+    idx, val = synth.make_corpus(0, ds, 3_000, pad=64)
+    qi, qv = synth.make_queries(1, ds, 48, pad=32)
+    spec = teng.EngineSpec(n=2_000, m=16, h=1, capacity=3_072, max_nnz=64,
+                           value_dtype="bfloat16", seed=3)
+    index = cls(spec, device=cuda, **kw)
+    index.insert_many(list(range(3_000)), idx, val)
+    return index, idx, val, qi, qv
+
+
+def test_front_door_coalesced_bit_equal_on_card(cuda):
+    """Coalesced front-door answers (padded [16, 32·j] dispatches, dummy
+    rows included) equal per-query ``query()`` bit for bit on the card,
+    and the ids of one ``query_many`` at B = 48."""
+    from repro_torch.serving import QueryServer, ServingFrontend
+    index, _, _, qi, qv = _card_index(cuda)
+    server = QueryServer(index, k=10, kprime=200)
+    expect = [server.query(qi[b], qv[b]) for b in range(qi.shape[0])]
+    whole = server.query_many(qi, qv)
+    fe = ServingFrontend(server, max_batch=16, batch_window_ms=2.0,
+                         query_pad=32, queue_depth=128)
+    try:
+        futs = [fe.submit(qi[b], qv[b]) for b in range(qi.shape[0])]
+        got = [f.result(timeout=120) for f in futs]
+    finally:
+        fe.close()
+    for b, (g, e) in enumerate(zip(got, expect)):
+        np.testing.assert_array_equal(g.ids, e.ids, err_msg=f"query {b}")
+        np.testing.assert_array_equal(g.scores, e.scores,
+                                      err_msg=f"query {b}")
+        np.testing.assert_array_equal(g.ids, whole.ids[b])
+
+
+def test_tiered_bit_equal_to_resident_under_concurrency(cuda):
+    """A 2-line cache, two searcher threads and an inserter at once: every
+    answer equals the resident index's at the same state, which pins the
+    in-place promotion overwriting a line a queued gather still reads."""
+    import threading
+    resident, idx, val, qi, qv = _card_index(cuda)
+    tiered, _, _, _, _ = _card_index(
+        cuda, teng.TieredSinnamonIndex, tier_chunk_slots=64, cache_chunks=2)
+    want = resident.search_many(qi, qv, k=10, kprime=2)
+    errors, stop = [], threading.Event()
+
+    def searcher(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            b = int(rng.integers(0, qi.shape[0]))
+            # one query's two candidates lie in at most two chunks: they
+            # fit the cache, so each search promotes and evicts
+            got = tiered.search_many(qi[b:b + 1], qv[b:b + 1], k=10,
+                                     kprime=2)
+            for g, w in zip(got, (want[0][b:b + 1], want[1][b:b + 1])):
+                if not np.array_equal(g, w):
+                    errors.append(b)
+
+    def inserter():
+        # re-insert the same documents under new ids: the answers to the
+        # searches above stay the same (their top rows are earlier slots)
+        for lo in range(0, 3_000, 250):
+            tiered.insert_many(list(range(10_000 + lo, 10_250 + lo)),
+                               idx[lo:lo + 250] * 0 - 1, val[lo:lo + 250] * 0)
+
+    threads = [threading.Thread(target=searcher, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    ins = threading.Thread(target=inserter)
+    ins.start()
+    ins.join(timeout=300)
+    stop.set()
+    for t in threads:
+        t.join(timeout=300)
+    assert not ins.is_alive() and not any(t.is_alive() for t in threads)
+    assert not errors, errors[:5]
+    st = tiered.tiered.stats()
+    assert st["promotions"] > 2 and st["evictions"] > 0
+    np.testing.assert_array_equal(
+        tiered.search_many(qi, qv, k=10, kprime=2)[1], want[1])

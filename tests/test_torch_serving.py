@@ -130,14 +130,22 @@ def test_open_index_defaults_to_cuda():
 
 
 def test_open_index_unported_rows_raise(tmp_path):
+    """Sharding is the row not ported yet; the tiered rows (ROADMAP item
+    10) now open their indexes."""
+    from repro_torch.persist import durable
     dur = tapi.DurabilityConfig(wal_dir=str(tmp_path / "wal"))
     for kw, item in ((dict(shards=2), "item 11"),
                      (dict(shards=2, durability=dur), "item 11"),
-                     (dict(device_budget_mb=8.0), "item 10"),
-                     (dict(device_budget_mb=8.0, durability=dur), "item 10")):
+                     (dict(shards=2, device_budget_mb=8.0), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             tapi.open_index(tapi.IndexConfig(n=100, capacity=64, **kw),
                             device="cpu")
+    for kw, cls in ((dict(device_budget_mb=8.0), teng.TieredSinnamonIndex),
+                    (dict(device_budget_mb=8.0, durability=dur),
+                     durable.DurableTieredSinnamonIndex)):
+        index = tapi.open_index(tapi.IndexConfig(n=100, capacity=64, **kw),
+                                device="cpu")
+        assert type(index) is cls
     with pytest.raises(ValueError):
         tapi.IndexConfig(n=100, capacity=64, backend="tpu")
 
@@ -218,7 +226,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-for pkg in ("obs", "fault", "checkpoint", "persist"):
+for pkg in ("obs", "fault", "checkpoint", "persist", "serving.frontend",
+            "serving.loadgen", "storage.tiered"):
     assert f"repro_torch.{pkg}" in names, pkg
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print(len(names))
@@ -231,7 +240,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(os.path.abspath(SRC)))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 52
+    assert int(out.stdout.strip()) >= 58
 
 
 def test_launcher_runs_on_cpu(capsys):
