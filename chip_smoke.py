@@ -106,6 +106,24 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               sparsifying) and against the exact sparse top-10 (kernel B's
               LinScan); kernel-path ids == twin-path ids; A and B's rerank
               kernel launch.
+9.  sharded — after 4d, with phase 4's index and corpus freed: 4 of
+              ``serve_msmarco``'s 8 shards (1,114,112 slots each, 4,456,448
+              documents drawn on the card) in one ``ShardedSinnamonIndex``
+              on this card (cut: 8 shards would hold ≈42.8 GB of state);
+              shard 0 bit-equal to a lone index fed its documents; 1/16 of
+              each shard churned; batches of 16 and 256 at k' = 800 and at
+              the deployment's 64: p50/p99, q/s, kernel A and B's rerank
+              launched 4 times a batch; recall@10 against the LinScan's
+              exact top-10 (at least ``RECALL_MIN`` at k'=800); kernel-path
+              ids == twin-path ids; the ``score_fn`` hook's candidates
+              bit-equal to the on-card ``reference`` backend; each shard's
+              candidate and rerank time and the merge's; the busy share at
+              B=16.  9b: 4 shards × 65,536 documents in the tiered sharded
+              index (48 and 6 MiB a shard) bit-equal to the resident one
+              before and after churn + compact, and in the durable sharded
+              index (fsync) recovered bit-equal onto 4 shards, then
+              elastically onto 2 and onto one device, equal to fresh
+              builds.
               Peak device memory stays < 40 GB.
 
 Launch counts are read per path: kernel A and B's rerank kernel
@@ -114,8 +132,10 @@ kernel on the dense path (and A not at all there), D on neither, and
 ``csr_score`` on none of them (it launches for the recall ground truth); D
 alone on the recsys path; A and the rerank kernel on the recsys
 retrieval; A and the rerank kernel (``launches_durable``) on the recovered
-durable index.  Ends with a JSON line of the recsys numbers, one of the
-durability numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
+durable index; A and the rerank kernel once a shard per batch
+(``launches_sharded``) on the sharded index.  Ends with JSON lines of the
+recsys, durability, front-door, tiered and sharded numbers, a JSON line
+of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
 directory without the package.
@@ -593,8 +613,15 @@ def main(argv=None) -> int:
     durable_counts, durable_line = durable_path(
         corpus_idx, corpus_val, q_idx[:256], q_val[:256], args.seed, dev)
 
+    # -- 9. the sharded index: 4 shards of the deployment on the card ---------
+    del corpus_idx, corpus_val
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_counts, sharded_line = sharded_path(q_idx, q_val, args.seed, dev,
+                                                card, cdf)
+
     # -- 6a / 6b. DLRM-rm2 serving and its users' retrieval --------------------
-    del corpus_idx, corpus_val, q_idx, q_val
+    del q_idx, q_val
     gc.collect()
     torch.cuda.empty_cache()
     d_row, recsys_line = recsys_path(args.seed, dev, card)
@@ -603,6 +630,7 @@ def main(argv=None) -> int:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
         row["launches_tiered"] = tiered_counts[row["name"]]
+        row["launches_sharded"] = sharded_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -614,6 +642,7 @@ def main(argv=None) -> int:
     print(json.dumps({"durable": durable_line}), flush=True)
     print(json.dumps({"frontdoor": frontdoor_line}), flush=True)
     print(json.dumps({"tiered": tiered_line}), flush=True)
+    print(json.dumps({"sharded": sharded_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1500,6 +1529,599 @@ def tiered_path(resident, corpus_idx, corpus_val, churn, q_idx, q_val, seed,
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[8 tiered] launches {counts}; phase {out['wall_s']:.1f}s")
     return counts, out
+
+
+SHARDS = 4                        # phase 9: 4 of serve_msmarco's 8 shards
+SHARD_KPRIMES = (800, 64)         # phase 9: k'=800, and the deployment's 64
+SHARD_BATCHES = {16: 40, 256: 8}  # phase 9: timed batches per batch size
+SHARD_UPDATE_BLOCK = 16_384       # phase 9: docs per shard per write step
+SHARD_SMALL = 65_536              # phase 9b: docs per shard
+SHARD_TIER_MB = (48, 6)           # phase 9b: every chunk of a shard, 1/8
+SHARD_TWIN_SLICE = 16             # phase 9: queries per twin-path call
+
+
+def sharded_churn(docs: int) -> list:
+    """1/16 of every shard's documents: ids 16j + j mod 4 (the Knuth hash
+    sends id i to shard i mod 4, so every 16th id would all be shard 0's)."""
+    return [16 * j + j % SHARDS for j in range(docs // 16)]
+
+
+def sharded_exact_ids(index, qi, qv):
+    """Exact top-K ids over a sharded index's live documents: kernel B's
+    LinScan over each shard, gated and cut to K, then the shard merge."""
+    import torch
+
+    from repro_torch.distributed import topk
+    from repro_torch.kernels import ops
+    from repro_torch.storage import vecstore
+
+    out = []
+    for lo in range(0, qi.shape[0], 64):
+        vals, pays = [], []
+        for st in index.states:
+            q_dense = vecstore.densify_query(N, qi[lo:lo + 64],
+                                             qv[lo:lo + 64])
+            exact = ops.exact_scores_all(st.store, q_dense)
+            exact = torch.where(st.active[None, :], exact, -torch.inf)
+            v, ids = topk.local_candidates(exact, st.ids, K)
+            vals.append(v)
+            pays.append(ids)
+            del exact
+        out.append(topk.merge_shards(vals, pays, K)[1].cpu().numpy())
+    import numpy as np
+    return np.concatenate(out)
+
+
+def sharded_path(q_idx, q_val, seed, dev, card, cdf):
+    """Phase 9: the sharded index (``serving/sharded.py``) on the card.
+
+    (a) ``open_index(IndexConfig(shards=4, ...))`` at ``serve_msmarco``'s
+    widths (n=30,000, m=64, h=1, max_nnz=128, bf16 cells and raw values),
+    1,114,112 slots a shard, 4,456,448 documents drawn with phase 4's
+    ``splade_like`` statistics (the Knuth hash sends id i to shard i mod 4,
+    so every shard fills exactly).  Cut: 4 of the deployment's 8 shards, on
+    one card; the full 8 would hold ≈42.8 GB of state (8 × (4.18 GB bitmap
+    + 285 MB sketch + 855 MB rows)), above the run's own
+    ``PEAK_MEMORY_MAX``.  Four shards are ≈21.4 GB.  The index writes in
+    blocks of ``SHARD_UPDATE_BLOCK`` documents per shard (a block's size
+    changes the number of write steps, not the state).  Shard 0's leaves
+    are held bit for bit against a lone ``SinnamonIndex`` fed the documents
+    the hash routes to shard 0, in the same order.  1/16 of each shard's
+    documents are churned (deleted, re-inserted into the dirty slots;
+    :func:`sharded_churn`), then batches
+    of 16 and 256 are served at k' = 800 and 64 (the deployment's
+    ``kprime_local``): p50 / p99 and q/s, launches (A and B's rerank S
+    times a batch, C and D never), each shard's candidate and rerank time
+    and the merge's (CUDA events), the device busy share at B=16 under
+    ``torch.profiler``; recall@10 against the LinScan's exact top-10
+    (gated at k'=800); the kernel path against the twin path at every k'
+    and B (:func:`sharded_twin_check`); the ``score_fn``
+    hook (kernel C, S launches a batch) with candidates bit-equal to the
+    on-card ``reference`` backend.
+
+    (b) 4 shards × ``SHARD_SMALL`` of the same documents: the tiered
+    sharded index at ``SHARD_TIER_MB`` per shard, answers bit-equal to the
+    resident sharded index before and after churn + ``compact()``; the
+    durable sharded index (fsync): logged build, snapshot, a WAL tail of
+    churn, the index dropped and recovered onto 4 shards bit-equal (leaves,
+    free lists, id map, answers), then recovered elastically onto 2 shards
+    and onto one device, answers equal to indexes built fresh from the
+    live documents in ``_reinsert_live``'s order.
+
+    Returns (launch counts of (a)'s fused batches, numbers)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.api import IndexConfig, open_index
+    from repro_torch.core import engine as eng
+    from repro_torch.serving.serve import QueryServer
+    from repro_torch.serving.sharded import route_many
+
+    t_phase = time.perf_counter()
+    _PEAK_BEFORE_RESET[0] = max(_PEAK_BEFORE_RESET[0],
+                                torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    docs = SHARDS * SHARD_DOCS
+    out = {"card": card, "shards": SHARDS, "docs": docs,
+           "update_block": SHARD_UPDATE_BLOCK}
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    corpus_idx = torch.empty((docs, P), dtype=torch.int32, device=dev)
+    corpus_val = torch.empty((docs, P), dtype=torch.float32, device=dev)
+    for lo in range(0, docs, 65_536):
+        hi = min(lo + 65_536, docs)
+        corpus_idx[lo:hi], corpus_val[lo:hi] = draw_sparse(
+            gen, hi - lo, PSI_DOC, P, cdf, dev)
+    torch.cuda.synchronize()
+    out["data_s"] = time.perf_counter() - t0
+
+    cfg = IndexConfig(n=N, capacity=docs, m=M, h=H, max_nnz=P, seed=seed,
+                      shards=SHARDS, update_block=SHARD_UPDATE_BLOCK)
+    t0 = time.perf_counter()
+    index = open_index(cfg, device=dev)
+    for lo in range(0, docs, 65_536):
+        hi = min(lo + 65_536, docs)
+        index.insert_many(range(lo, hi), corpus_idx[lo:hi],
+                          corpus_val[lo:hi])
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    sizes = [SHARD_DOCS - len(f) for f in index._free]
+    if index.size != docs or index.spec.capacity != SHARD_DOCS \
+            or sizes != [SHARD_DOCS] * SHARDS:
+        raise AssertionError(f"sharded index holds {index.size} docs, "
+                             f"{sizes} a shard, capacity "
+                             f"{index.spec.capacity}")
+    out["memory_bytes"] = index.memory_bytes()
+    log(f"[9 sharded] built {SHARDS} shards x {SHARD_DOCS} docs on one card "
+        f"in {out['build_s']:.1f}s (data {out['data_s']:.1f}s); memory "
+        f"{out['memory_bytes']}")
+
+    # shard 0 against a lone index fed the documents the hash routes there
+    t0 = time.perf_counter()
+    lone = eng.SinnamonIndex(index.spec, device=dev)
+    for lo in range(0, docs, 65_536):
+        ids = np.arange(lo, min(lo + 65_536, docs))
+        ids = ids[route_many(ids, SHARDS) == 0]
+        lone.insert_many(ids.tolist(), corpus_idx[ids], corpus_val[ids])
+    a, b = lone.state, index.states[0]
+    ints = eng._ints
+    same0 = (torch.equal(ints(a.sketch), ints(b.sketch))
+             and torch.equal(a.bits, b.bits)
+             and torch.equal(a.store.indices, b.store.indices)
+             and torch.equal(ints(a.store.values), ints(b.store.values))
+             and torch.equal(a.active, b.active)
+             and torch.equal(a.ids, b.ids) and torch.equal(a.dirty, b.dirty)
+             and torch.equal(a.mappings, b.mappings)
+             and lone._free == index._free[0]
+             and lone._id2slot == {e: t for e, (s, t)
+                                   in index._id2slot.items() if s == 0})
+    del lone, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same0:
+        raise AssertionError("shard 0 != a lone SinnamonIndex fed its "
+                             "documents")
+    log(f"[9 sharded] shard 0's leaves, free list and slot map bit-equal to "
+        f"a lone SinnamonIndex fed the {SHARD_DOCS} documents routed there "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    churn = sharded_churn(docs)
+    t0 = time.perf_counter()
+    index.delete_many(churn)
+    churn_t = torch.tensor(churn, device=dev)
+    for lo in range(0, len(churn), 65_536):
+        part = churn_t[lo:lo + 65_536]
+        index.insert_many(part, corpus_idx[part], corpus_val[part])
+    torch.cuda.synchronize()
+    out["churn_s"] = time.perf_counter() - t0
+    n_dirty = sum(int(st.dirty.sum()) for st in index.states)
+    if index.size != docs or n_dirty != len(churn):
+        raise AssertionError(f"after churn: {index.size} docs, {n_dirty} "
+                             f"dirty")
+    log(f"[9 sharded] churned {len(churn)} docs (delete + re-insert into "
+        f"{n_dirty} dirty slots) in {out['churn_s']:.1f}s")
+
+    # serving: batches of 16 and 256 at k' = 800 and 64
+    t_serve = time.perf_counter()
+    counts = {name: 0 for name in kernels.launch_counts()}
+    out["serve"] = {}
+    answers = {}
+    for kp in SHARD_KPRIMES:
+        server = QueryServer(index, k=K, kprime=kp)
+        server.query_many(q_idx[:16], q_val[:16])               # warm-up
+        for bsz, n_batches in SHARD_BATCHES.items():
+            kernels.reset_launch_counts()
+            walls, ids = [], []
+            for i in range(n_batches):
+                lo = (i * bsz) % (512 - bsz + 1)
+                t0 = time.perf_counter()
+                res = server.query_many(q_idx[lo:lo + bsz],
+                                        q_val[lo:lo + bsz])
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if res.ids.shape != (bsz, K) or not np_all_finite(res.scores):
+                    raise AssertionError(f"bad sharded result at B={bsz}")
+                ids.append((lo, res))
+            got = kernels.launch_counts()
+            want = {"sinnamon_score_topk": SHARDS * n_batches,
+                    "csr_rerank_topk": SHARDS * n_batches,
+                    "sinnamon_score": 0, "embed_bag": 0, "csr_score": 0}
+            if got != want:
+                raise AssertionError(f"sharded launches at B={bsz}, "
+                                     f"k'={kp}: {got}, want {want}")
+            for name, n in got.items():
+                counts[name] += n
+            answers[(kp, bsz)] = ids
+            out["serve"][f"k'={kp} B={bsz}"] = request_latency(walls, bsz)
+            r = out["serve"][f"k'={kp} B={bsz}"]
+            log(f"[9 sharded] k'={kp} B={bsz}: p50 / p99 {r['p50']:.3f} / "
+                f"{r['p99']:.3f} ms, {r['qps']:.0f} q/s over {n_batches} "
+                f"batches; launches {got}")
+    staged = QueryServer(index, k=K, kprime=KPRIME, trace_every=1)
+    lo, res16 = answers[(KPRIME, 16)][-1]
+    sres = staged.query_many(q_idx[lo:lo + 16], q_val[lo:lo + 16])
+    if not (sres.ids == res16.ids).all():
+        raise AssertionError("staged sharded ids != served ids")
+    out["staged_spans_ms"] = {sp.name: sp.ms for sp in staged.last_trace.spans}
+    log(f"[9 sharded] staged batch (B=16): {out['staged_spans_ms']}")
+
+    # recall@10 against the exact top-10 (LinScan per shard + merge)
+    steps = out["steps_s"] = {"serve": time.perf_counter() - t_serve}
+    t0 = time.perf_counter()
+    qi256, qv256 = q_idx[:256], q_val[:256]
+    kernels.reset_launch_counts()
+    truth = sharded_exact_ids(index, qi256, qv256)
+    ls_counts = kernels.launch_counts()
+    check_path_launches(ls_counts, "sharded recall ground truth",
+                        ("csr_score",), ("sinnamon_score_topk",))
+    out["recall"] = {}
+    for kp in SHARD_KPRIMES:
+        ids = np.concatenate([index.search_many(
+            qi256[lo:lo + 64], qv256[lo:lo + 64], K, kprime=kp)[0]
+            for lo in range(0, 256, 64)])
+        out["recall"][f"k'={kp}"] = recall_at_k(ids, truth)
+    log(f"[9 sharded] recall@{K} over 256 queries against the exact LinScan "
+        f"({ls_counts['csr_score']} LinScan launches): {out['recall']}")
+    recall = out["recall"][f"k'={KPRIME}"]
+    if recall < RECALL_MIN:
+        raise AssertionError(f"sharded recall@{K} at k'={KPRIME} "
+                             f"{recall:.4f} < {RECALL_MIN}")
+
+    steps["recall"] = time.perf_counter() - t0
+
+    # kernel path == twin path at every k' and B; the score_fn hook == the
+    # reference backend
+    t0 = time.perf_counter()
+    out["twin_max_abs_diff"] = sharded_twin_check(index, q_idx, q_val)
+    steps["twin"] = time.perf_counter() - t0
+    qi16, qv16 = q_idx[:16].contiguous(), q_val[:16].contiguous()
+    ids_k, _ = index.search_many(qi16, qv16, K, kprime=KPRIME)
+    t0 = time.perf_counter()
+    hook_counts, out["hook_ids_equal_fused"] = sharded_hook(
+        index, qi16, qv16, ids_k)
+    steps["hook"] = time.perf_counter() - t0
+    log(f"[9 sharded] score_fn hook (kernel C): launches {hook_counts}; "
+        f"every shard's candidates bit-equal to the on-card reference "
+        f"backend; ids == fused ids: {out['hook_ids_equal_fused']}")
+    t0 = time.perf_counter()
+    out["stages_ms"] = sharded_stage_times(index, q_idx, q_val)
+    steps["stages"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # device busy share at B=16, k'=800 (a profiler window costs seconds)
+    server = QueryServer(index, k=K, kprime=KPRIME)
+    wall, by_name = device_profile(lambda: server.query_many(qi16, qv16), 20)
+    out["busy_B=16"] = busy_summary(wall, by_name)
+    log(f"[9 sharded] k'={KPRIME} B=16 under torch.profiler: "
+        f"{out['busy_B=16']}")
+    steps["busy"] = time.perf_counter() - t0
+    log(f"[9 sharded] seconds per step: {steps}")
+    del index, server, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_a_bytes"] = torch.cuda.max_memory_allocated()
+
+    small = sharded_small(corpus_idx, corpus_val, q_idx[:256], q_val[:256],
+                          seed, dev)
+    out.update(small)
+    del corpus_idx, corpus_val
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if out["peak_bytes"] >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"phase 9 peak device memory "
+                             f"{out['peak_bytes'] / 1e9:.2f} GB >= "
+                             f"{PEAK_MEMORY_MAX / 1e9:.0f} GB")
+    out["launches"] = counts
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[9 sharded] launches {counts}; peak {out['peak_bytes'] / 2**30:.2f}"
+        f" GiB; phase {out['wall_s']:.1f}s ({card})")
+    return counts, out
+
+
+def sharded_twin_check(index, q_idx, q_val) -> dict:
+    """Phase 9: the sharded kernel path against its twin path
+    (``use_kernel=False``: kernel A's, the tile merge's and B's rerank's
+    plain versions) at every k' of ``SHARD_KPRIMES`` and B of
+    ``SHARD_BATCHES``.  Ids and (shard, slot) locators must be equal and
+    scores within kernel B's rtol = atol = 1e-5.  The kernel path takes the
+    whole batch in one call, at the main path's shapes; the twin path takes
+    it ``SHARD_TWIN_SLICE`` queries a call (at B=256 its dense [B, C]
+    intermediates over a 1,114,112-slot shard would pass the run's memory
+    bound), which gives every query the same answer.  Returns the largest
+    score difference per k' and B."""
+    import numpy as np
+
+    out = {}
+    for kp in SHARD_KPRIMES:
+        for bsz in SHARD_BATCHES:
+            qi, qv = q_idx[:bsz].contiguous(), q_val[:bsz].contiguous()
+            ids_k, sc_k, loc_k = index.search_many(qi, qv, K, kprime=kp,
+                                                   return_locators=True)
+            twin = [index.search_many(qi[lo:lo + SHARD_TWIN_SLICE],
+                                      qv[lo:lo + SHARD_TWIN_SLICE], K,
+                                      kprime=kp, return_locators=True,
+                                      use_kernel=False)
+                    for lo in range(0, bsz, SHARD_TWIN_SLICE)]
+            ids_p, sc_p, loc_p = (np.concatenate(x) for x in zip(*twin))
+            what = f"k'={kp} B={bsz}"
+            if not (np.array_equal(ids_k, ids_p)
+                    and np.array_equal(loc_k, loc_p)):
+                raise AssertionError(f"sharded kernel-path ids/locators != "
+                                     f"twin-path ones at {what}")
+            np.testing.assert_allclose(sc_k, sc_p, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"sharded scores at {what}")
+            out[what] = float(np.max(np.abs(sc_k - sc_p)))
+    log(f"[9 sharded] kernel path == twin path (ids and locators equal, "
+        f"scores within rtol=atol=1e-5) at every k' and B; score max abs "
+        f"diff {out}")
+    return out
+
+
+def sharded_hook(index, qi, qv, fused_ids):
+    """The ``score_fn`` hook (kernel C) on a sharded batch: its launches (C
+    and B's rerank once a shard, A never), every shard's candidates
+    bit-equal to the on-card ``reference`` backend's; returns (launch
+    counts, ids equal to the fused path's)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import ops
+
+    score_fn = ops.make_engine_score_fn()
+    kernels.reset_launch_counts()
+    hook_ids, _ = index.search_many(qi, qv, K, kprime=KPRIME,
+                                    score_fn=score_fn)
+    counts = kernels.launch_counts()
+    if counts != {"sinnamon_score_topk": 0, "csr_score": 0,
+                  "sinnamon_score": index.n_shards, "embed_bag": 0,
+                  "csr_rerank_topk": index.n_shards}:
+        raise AssertionError(f"hook launches {counts}")
+    for s, st in enumerate(index.states):
+        cv, cs = eng.topk_candidates(st, index.spec, qi, qv, KPRIME,
+                                     score_fn=score_fn)
+        rv, rs = eng.topk_candidates(st, index.spec, qi, qv, KPRIME,
+                                     backend="reference")
+        if not (torch.equal(cs, rs) and torch.equal(cv.view(torch.int32),
+                                                    rv.view(torch.int32))):
+            raise AssertionError(f"shard {s}: hook candidates != the "
+                                 f"reference backend's")
+    return counts, bool(np.array_equal(hook_ids, fused_ids))
+
+
+def sharded_stage_times(index, q_idx, q_val) -> dict:
+    """CUDA-event ms of each shard's candidates (kernel A + tile merge) and
+    rerank (B's rerank kernel), and of the shard merge, per k' and B."""
+    from repro_torch.core import engine as eng
+
+    out = {}
+    for kp in SHARD_KPRIMES:
+        for bsz in SHARD_BATCHES:
+            qi, qv = q_idx[:bsz].contiguous(), q_val[:bsz].contiguous()
+            row = {"candidates": [], "rerank": []}
+            parts = []
+            for st in index.states:
+                def cand(st=st):
+                    return eng.topk_candidates(st, index.spec, qi, qv, kp)
+                row["candidates"].append(cuda_ms(cand, 5))
+                ub, sl = cand()
+
+                def rerank(st=st, ub=ub, sl=sl):
+                    return eng.rerank_topk(st, ub, sl, qi, qv, min(K, kp))
+                row["rerank"].append(cuda_ms(rerank, 20))
+                ids, sc, slots = rerank()
+                parts.append((sc, ids, slots))
+            row["merge"] = cuda_ms(lambda: index._merge(parts, K), 50)
+            row["sum"] = (sum(row["candidates"]) + sum(row["rerank"])
+                          + row["merge"])
+            row["merge_share"] = row["merge"] / row["sum"]
+            out[f"k'={kp} B={bsz}"] = row
+            log(f"[9 sharded] k'={kp} B={bsz} CUDA events: candidates per "
+                f"shard {[round(x, 4) for x in row['candidates']]} ms, "
+                f"rerank {[round(x, 4) for x in row['rerank']]} ms, merge "
+                f"{row['merge']:.4f} ms ({100 * row['merge_share']:.2f}% of "
+                f"{row['sum']:.3f} ms)")
+    return out
+
+
+def sharded_small(corpus_idx, corpus_val, qi, qv, seed, dev) -> dict:
+    """Phase 9b: the tiered and durable sharded indexes on 4 shards ×
+    ``SHARD_SMALL`` documents (see :func:`sharded_path`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import DurabilityConfig, IndexConfig, open_index
+    from repro_torch import convert
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving.serve import QueryServer
+
+    n = SHARDS * SHARD_SMALL
+    out = {"small_docs": n}
+    churn = sharded_churn(n)
+    churn_t = torch.tensor(churn, device=dev)
+
+    def cfg(**kw):
+        return IndexConfig(n=N, capacity=n, m=M, h=H, max_nnz=P, seed=seed,
+                           update_block=SHARD_UPDATE_BLOCK,
+                           **{"shards": SHARDS, **kw})
+
+    def build(ix):
+        for lo in range(0, n, 32_768):
+            hi = min(lo + 32_768, n)
+            ix.insert_many(range(lo, hi), corpus_idx[lo:hi],
+                           corpus_val[lo:hi])
+        return ix
+
+    def churn_in(ix):
+        ix.delete_many(churn)
+        for lo in range(0, len(churn), 32_768):
+            part = churn_t[lo:lo + 32_768]
+            ix.insert_many(part, corpus_idx[part], corpus_val[part])
+
+    def answers(ix):
+        parts = [ix.search_many(qi[lo:lo + 16], qv[lo:lo + 16], K,
+                                kprime=KPRIME) for lo in range(0, 256, 16)]
+        return (np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]))
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    # -- tiered sharded beside the resident sharded index ---------------------
+    def p50_b16(ix) -> dict:
+        server = QueryServer(ix, k=K, kprime=KPRIME)
+        server.query_many(qi[:16], qv[:16])                      # warm-up
+        walls = []
+        for i in range(20):
+            lo = (i * 16) % (256 - 16 + 1)
+            t1 = time.perf_counter()
+            server.query_many(qi[lo:lo + 16], qv[lo:lo + 16])
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return request_latency(walls, 16)
+
+    t0 = time.perf_counter()
+    resident = build(open_index(cfg(), device=dev))
+    want = answers(resident)
+    out["resident_B=16"] = p50_b16(resident)
+    churn_in(resident)
+    n_res = resident.compact()
+    want_after = answers(resident)
+    del resident
+    gc.collect()
+    out["tiered"] = {}
+    for mb in SHARD_TIER_MB:
+        tiered = build(open_index(cfg(device_budget_mb=mb), device=dev))
+        t = tiered.tiers[0]
+        if not same(answers(tiered), want):
+            raise AssertionError(f"tiered sharded ({mb} MiB) != resident")
+        s0 = [x.stats() for x in tiered.tiers]
+        lat = p50_b16(tiered)
+        s1 = [x.stats() for x in tiered.tiers]
+        per = {k: sum(b[k] - a[k] for a, b in zip(s0, s1)) / 21
+               for k in ("hits", "misses", "fallbacks", "promotions")}
+        staged = QueryServer(tiered, k=K, kprime=KPRIME, trace_every=1)
+        staged.query_many(qi[:16], qv[:16])
+        spans = {sp.name: sp.ms for sp in staged.last_trace.spans}
+        churn_in(tiered)
+        n_tier = tiered.compact()
+        if n_tier != n_res or not same(answers(tiered), want_after):
+            raise AssertionError(f"tiered sharded ({mb} MiB) after churn + "
+                                 f"compact != resident ({n_tier} vs {n_res}"
+                                 f" columns)")
+        out["tiered"][f"{mb} MiB"] = {
+            "cache_chunks": t.cache_chunks, "num_chunks": t.num_chunks,
+            "B=16": lat, "per_batch_all_shards": per,
+            "staged_spans_ms": spans}
+        log(f"[9b tiered] {mb} MiB a shard ({t.cache_chunks} of "
+            f"{t.num_chunks} chunks): answers bit-equal to the resident "
+            f"sharded index before and after churn + compact ({n_tier} "
+            f"columns); B=16 p50 {lat['p50']:.3f} ms (resident sharded "
+            f"{out['resident_B=16']['p50']:.3f}); per batch over the shards "
+            f"{per}; spans {spans}")
+        del tiered, staged, t
+        gc.collect()
+    torch.cuda.empty_cache()
+    out["tiered_s"] = time.perf_counter() - t0
+
+    # -- durable sharded: log, snapshot, tail, recover, elastic --------------
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="sharded-9-", dir=root)
+    prev = obs_metrics.set_registry(obs_metrics.MetricsRegistry())
+    try:
+        t_d = time.perf_counter()
+        dur = DurabilityConfig(wal_dir=os.path.join(scratch, "wal"),
+                               snapshot_dir=os.path.join(scratch, "snap"),
+                               fsync=True, snapshot_keep=1)
+        live = open_index(cfg(durability=dur), device=dev)
+        t0 = time.perf_counter()
+        build(live)
+        torch.cuda.synchronize()
+        d = {"log_apply_s": time.perf_counter() - t0}
+        app = obs_metrics.get_registry().snapshot()["repro_wal_append_ms"]
+        app = app["series"][0]
+        d["wal_records"] = app["count"]
+        d["wal_bytes"] = dir_bytes(dur.wal_dir)
+        d["append_mb_per_s"] = d["wal_bytes"] / 1e6 / (app["sum"] / 1e3)
+        t0 = time.perf_counter()
+        path = live.snapshot()
+        d["snapshot_s"] = time.perf_counter() - t0
+        d["snapshot_bytes"] = dir_bytes(path)
+        churn_in(live)
+        live.compact()
+        want = answers(live)
+        leaves = convert.state_to_numpy(live.logical_state(), live.spec)
+        free, id2slot = [list(f) for f in live._free], dict(live._id2slot)
+        for w in live._writers.values():
+            w.close()
+        del live
+        gc.collect()
+        t0 = time.perf_counter()
+        rec = open_index(cfg(durability=dur), device=dev)
+        torch.cuda.synchronize()
+        d["recover_s"] = time.perf_counter() - t0
+        d["recovery_timings"] = rec.recovery_timings
+        got = convert.state_to_numpy(rec.logical_state(), rec.spec)
+        if not (sorted(got) == sorted(leaves)
+                and all(np.array_equal(got[k], leaves[k]) for k in leaves)
+                and rec._free == free and rec._id2slot == id2slot
+                and same(answers(rec), want)):
+            raise AssertionError("recovered sharded index != the live one")
+        log(f"[9b durable] logged build of {n} docs in "
+            f"{d['log_apply_s']:.2f}s ({d['wal_records']} records, "
+            f"{d['wal_bytes']} B, appends with fsync "
+            f"{d['append_mb_per_s']:.1f} MB/s); snapshot "
+            f"{d['snapshot_bytes']} B in {d['snapshot_s']:.2f}s; recovered "
+            f"onto {SHARDS} shards in {d['recover_s']:.2f}s "
+            f"({d['recovery_timings']}): leaves, free lists, id map and 256 "
+            f"answers bit-equal to the live index")
+        t0 = time.perf_counter()
+        rec.snapshot()             # covers the tail: elastic = fresh re-insert
+        d["snapshot_again_s"] = time.perf_counter() - t0
+        live_ids = rec.doc_ids()
+        for w in rec._writers.values():
+            w.close()
+        del rec, got, leaves
+        gc.collect()
+        ordered = torch.tensor(live_ids, device=dev)
+        d["elastic"] = {}
+        for shards in (2, 1):
+            t0 = time.perf_counter()
+            el = open_index(cfg(durability=dur, shards=shards), device=dev)
+            torch.cuda.synchronize()
+            el_s = time.perf_counter() - t0
+            fresh = open_index(cfg(shards=shards), device=dev)
+            vals = corpus_val[:n].to(torch.bfloat16).float()  # stored rows
+            for lo in range(0, len(live_ids), 512):
+                part = ordered[lo:lo + 512]
+                fresh.insert_many(part, corpus_idx[part], vals[part])
+            del vals
+            if el.doc_ids() != live_ids or not same(answers(el),
+                                                    answers(fresh)):
+                raise AssertionError(f"elastic recovery onto {shards} "
+                                     f"shard(s) != a fresh build")
+            d["elastic"][f"{shards} shard(s)"] = {
+                "recover_s": el_s, "type": type(el).__name__,
+                "recovery_timings": el.recovery_timings}
+            log(f"[9b durable] elastic recovery onto {shards} shard(s) "
+                f"({type(el).__name__}) in {el_s:.2f}s "
+                f"({el.recovery_timings}; the rest is the rebased snapshot): "
+                f"answers equal to an index built fresh in _reinsert_live's "
+                f"order")
+            for w in el._writers.values():
+                w.close()
+            del el, fresh
+            gc.collect()
+        d["wall_s"] = time.perf_counter() - t_d
+        out["durable"] = d
+    finally:
+        obs_metrics.set_registry(prev)
+        shutil.rmtree(scratch, ignore_errors=True)
+    return out
 
 
 def kernel_d_against_twin(gen, dev, seed: int) -> None:

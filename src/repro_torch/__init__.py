@@ -7,20 +7,23 @@ imports neither JAX nor any module of ``repro``.  Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.
 
     repro_torch.api      — IndexConfig, DurabilityConfig + open_index
-                           (single device, ephemeral or durable)
+                           (one device or S shards, ephemeral or durable,
+                           resident or tiered)
     repro_torch.core     — sketch, bit-packed index, engine, SinnamonIndex,
                            §5 theory, LinScan and WAND baselines
     repro_torch.kernels  — CUDA kernels for Hopper + plain twins + dispatch
     repro_torch.storage  — padded-CSR vector store
-    repro_torch.serving  — QueryServer, QueryResult
+    repro_torch.serving  — QueryServer, QueryResult, the front door, the
+                           sharded index (one process over S shards)
+    repro_torch.distributed — shard placement and the shard merge
     repro_torch.obs      — metrics registry, traces, flight recorder, SLO
                            monitor, event log, HTTP debug server
     repro_torch.fault    — seeded failpoints, retry, circuit breaker,
                            degradation ladder
     repro_torch.checkpoint — checkpoints in the reference's on-disk layout
     repro_torch.persist  — WAL, snapshots, compaction policy,
-                           DurableSinnamonIndex (recovers either package's
-                           files)
+                           DurableSinnamonIndex, DurableShardedSinnamonIndex
+                           (recover either package's files)
     repro_torch.convert  — carry a reference index's state into the port
                            and back (snapshot leaves)
     repro_torch.data     — synthetic corpora and recsys batches

@@ -8,14 +8,18 @@
     index.insert_many(ids, idx, val)
     result = QueryServer(index, k=10).query_many(q_idx, q_val)
 
-It serves the single-device rows of the reference's routing table: an
-ephemeral ``SinnamonIndex``, or with a :class:`DurabilityConfig` a
+It serves every row of the reference's routing table: an ephemeral
+``SinnamonIndex``, or with a :class:`DurabilityConfig` a
 ``DurableSinnamonIndex`` that recovers snapshot + WAL tail on open (on disk
-in the reference's formats); with ``device_budget_mb`` each becomes its
-tiered twin (``TieredSinnamonIndex`` / ``DurableTieredSinnamonIndex``: the
-raw rows in pinned host memory behind a device chunk cache of that many
-MiB).  ``shards > 1`` raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+in the reference's formats); ``shards > 1`` (or a list of devices) gives
+the sharded index, ``ShardedSinnamonIndex`` or
+``DurableShardedSinnamonIndex``: one process over S shard states, several
+of which may share one card, with no ``torch.distributed``; with
+``device_budget_mb`` each becomes its tiered twin (``TieredSinnamonIndex``
+/ ``TieredShardedSinnamonIndex`` / ``DurableTieredSinnamonIndex``: the raw
+rows in pinned host memory behind a device chunk cache of that many MiB
+per device).  Durable + sharded + tiered raises ``NotImplementedError``,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -69,10 +73,13 @@ class IndexConfig:
     ``f32 | bf16 | f8``), ``store_dtype`` (raw rows), ``positive_only``,
     ``index_buckets``, ``seed``.  ``backend`` pins the scoring backend
     (``reference | grouped | fused``, ``pallas`` an alias of ``fused``;
-    None -> ``fused``).  ``device_budget_mb`` caps the device bytes of raw
-    vector rows and serves the tiered index (results bit-identical to the
-    resident one); ``tier_chunk_slots`` is its paging granularity in slots
-    per chunk.
+    None -> ``fused``).  ``shards`` > 1 serves the sharded index
+    (``capacity`` stays the GLOBAL slot count; each shard gets
+    :attr:`local_capacity`), which writes in blocks of ``update_block``
+    documents per shard.  ``device_budget_mb`` caps the PER-SHARD device
+    bytes of raw vector rows and serves the tiered index (results
+    bit-identical to the resident one); ``tier_chunk_slots`` is its paging
+    granularity in slots per chunk.
     """
 
     n: int
@@ -88,6 +95,7 @@ class IndexConfig:
     seed: int = 0
     backend: Optional[str] = None
     shards: int = 1
+    update_block: int = 32
     durability: Optional[object] = None
     device_budget_mb: Optional[float] = None   # device raw-store budget
     tier_chunk_slots: int = 256                # slots per tiering chunk
@@ -122,45 +130,72 @@ class IndexConfig:
             seed=self.seed)
 
 
-def open_index(config: IndexConfig, device=None) -> eng.SinnamonIndex:
-    """Open the index a config describes, on ``device`` (None: the CUDA
-    card; raises when there is none unless ``device="cpu"`` is given).
+def open_index(config: IndexConfig, device=None):
+    """Open (or recover) the index a config describes, on ``device`` (None:
+    the CUDA card; raises when there is none unless ``device="cpu"`` is
+    given).
 
-    ========== ================ =================================
-    durability device_budget_mb returns
-    ========== ================ =================================
-    None       None             ``SinnamonIndex``
-    None       set              ``TieredSinnamonIndex``
-    set        None             ``DurableSinnamonIndex.open``
-    set        set              ``DurableTieredSinnamonIndex.open``
-    ========== ================ =================================
+    ========== ================ ================ ========================
+    durability shards / devices device_budget_mb returns
+    ========== ================ ================ ========================
+    None       1, one device    None             ``SinnamonIndex``
+    None       1, one device    set              ``TieredSinnamonIndex``
+    None       >1 or a list     None             ``ShardedSinnamonIndex``
+    None       >1 or a list     set              ``TieredShardedSinnamonIndex``
+    set        1, one device    None             ``DurableSinnamonIndex.open``
+    set        1, one device    set              ``DurableTieredSinnamonIndex.open``
+    set        >1 or a list     None             ``DurableShardedSinnamonIndex.open``
+    set        >1 or a list     set              ``NotImplementedError``
+    ========== ================ ================ ========================
 
-    A durable index recovers what its directories hold.  The tiered cache
-    holds ``int(device_budget_mb * 2**20)`` bytes of rows, rounded down to
-    whole chunks.  The returned index carries ``config`` on ``.config`` and
-    ``config.backend`` as its default scoring backend.
+    ``device`` may be a list of devices, one per shard: the counterpart of
+    the reference's ``mesh=``, it sets the shard count and forces the
+    sharded index even for one shard.  Otherwise ``shards > 1`` places
+    ``config.shards`` shards on ``device`` (None: the visible CUDA devices,
+    round robin).  A durable index recovers what its directories hold.  The
+    tiered cache holds ``int(device_budget_mb * 2**20)`` bytes of rows per
+    device (per shard), rounded down to whole chunks.  The returned index
+    carries ``config`` on ``.config`` and ``config.backend`` as its default
+    scoring backend.
     """
-    if config.shards > 1:
-        raise NotImplementedError(
-            "shards > 1, with or without durability, is not ported yet "
-            "(ROADMAP Queue 1 item 11: serving/sharded.py on "
-            "torch.distributed, then DurableShardedSinnamonIndex)")
     spec = config.engine_spec()
+    listed = isinstance(device, (list, tuple))
+    sharded = listed or config.shards > 1
+    tiered = config.device_budget_mb is not None
+    if sharded and tiered and config.durability is not None:
+        raise NotImplementedError(
+            "durability + shards + device_budget_mb is not supported yet: "
+            "drop one of the three (tiered sharded serving is available "
+            "without durability)")
     tkw = dict(tier_chunk_slots=config.tier_chunk_slots,
                device_budget_bytes=int(config.device_budget_mb * (1 << 20))
-               ) if config.device_budget_mb is not None else None
+               ) if tiered else {}
+    if sharded:
+        from repro_torch.distributed import mesh as meshlib
+        devices = meshlib.shard_devices(None if listed else config.shards,
+                                        device)
+        skw = dict(update_block=config.update_block)
     if config.durability is not None:
         from repro_torch.persist import durable
-        if tkw is None:
-            index = durable.DurableSinnamonIndex.open(
-                spec, device=device, **config.durability.kwargs())
-        else:
+        dkw = config.durability.kwargs()
+        if sharded:
+            index = durable.DurableShardedSinnamonIndex.open(
+                spec, devices, **skw, **dkw)
+        elif tiered:
             index = durable.DurableTieredSinnamonIndex.open(
-                spec, device=device, **config.durability.kwargs(), **tkw)
-    elif tkw is None:
-        index = eng.SinnamonIndex(spec, device=device)
-    else:
+                spec, device=device, **dkw, **tkw)
+        else:
+            index = durable.DurableSinnamonIndex.open(spec, device=device,
+                                                      **dkw)
+    elif sharded:
+        from repro_torch.serving import sharded as sharded_mod
+        cls = sharded_mod.TieredShardedSinnamonIndex if tiered \
+            else sharded_mod.ShardedSinnamonIndex
+        index = cls(spec, devices, **skw, **tkw)
+    elif tiered:
         index = eng.TieredSinnamonIndex(spec, device=device, **tkw)
+    else:
+        index = eng.SinnamonIndex(spec, device=device)
     index.default_backend = config.backend
     index.config = config
     return index

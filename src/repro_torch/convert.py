@@ -19,6 +19,13 @@ the keys ``repro.checkpoint.ckpt`` writes), which is what
 :mod:`repro_torch.persist.snapshot` stores.  :func:`state_from_numpy` reads
 either key form.
 
+A reference *sharded* state is one global state whose slot axes run over
+the shards in order (shard s owns slots ``[s·cap, (s+1)·cap)``).
+:func:`split_leaves` cuts its leaves into per-shard leaves and
+:func:`sharded_states_from_numpy` places each shard on its device; the way
+back is ``ShardedSinnamonIndex.logical_state()`` (the shards concatenated
+in order) through :func:`state_to_numpy`.
+
 :func:`recsys_params_from_numpy` carries a reference DLRM parameter tree
 the same way into a :class:`repro_torch.models.recsys.DLRM`.
 """
@@ -161,6 +168,37 @@ def state_from_numpy(leaves: dict, spec: eng.EngineSpec,
         dirty=_on(leaves["dirty"], bool, device),
         m=spec.m,
     )
+
+
+#: The axis of each snapshot leaf that runs over slots (None: the leaf is
+#: the same on every shard).  Bitmap words hold 32 slots each.
+SLOT_AXES = {".mappings": None, ".u": 1, ".l": 1, ".bits": 1,
+             ".store/.indices": 0, ".store/.values": 0, ".active": 0,
+             ".ids": 0, ".dirty": 0}
+
+
+def split_leaves(leaves: dict, n_shards: int) -> list:
+    """A global state's snapshot leaves (keyed as :data:`SNAPSHOT_KEYS`)
+    cut into ``n_shards`` per-shard leaf dicts, shard s holding the s-th
+    equal block of every slot axis (:data:`SLOT_AXES`).  The blocks are
+    views where numpy can give them."""
+    out = [{} for _ in range(n_shards)]
+    for key, arr in leaves.items():
+        ax = SLOT_AXES[key]
+        parts = [arr] * n_shards if ax is None or arr is None \
+            else np.split(np.asarray(arr), n_shards, axis=ax)
+        for s in range(n_shards):
+            out[s][key] = parts[s]
+    return out
+
+
+def sharded_states_from_numpy(leaves: dict, spec: eng.EngineSpec, devices,
+                              store_device=None) -> list:
+    """Per-shard port states of a reference sharded state's global leaves:
+    shard s (``spec`` is the per-shard spec) on ``devices[s]``, its raw
+    store on ``store_device`` (None: with the shard)."""
+    return [state_from_numpy(lv, spec, dev, store_device=store_device)
+            for lv, dev in zip(split_leaves(leaves, len(devices)), devices)]
 
 
 def recsys_params_from_numpy(params: dict, cfg, device=None):

@@ -956,6 +956,12 @@ class SinnamonIndex:
     def grow(self, new_capacity: int) -> None:
         """Reallocate to a larger capacity, preserving slot numbering."""
         t0 = time.perf_counter()
+        self._grow(new_capacity)
+        self._obs.record("grow", t0)
+
+    def _grow(self, new_capacity: int) -> None:
+        """:meth:`grow` without its metric (a sharded index grows its
+        shards through it and records one grow)."""
         with self._state_lock.write():
             spec = self.spec
             if new_capacity <= spec.capacity or new_capacity % 32 != 0:
@@ -966,7 +972,6 @@ class SinnamonIndex:
             self.spec = new_spec
             self._free = (list(range(new_capacity - 1, spec.capacity - 1, -1))
                           + self._free)
-        self._obs.record("grow", t0)
 
     # -- maintenance -----------------------------------------------------------
     def compact(self) -> int:
@@ -1117,9 +1122,9 @@ class TieredSinnamonIndex(SinnamonIndex):
             return ids.cpu().numpy(), scores.cpu().numpy()
 
     # -- capacity / maintenance ----------------------------------------------
-    def grow(self, new_capacity: int) -> None:
+    def _grow(self, new_capacity: int) -> None:
         with self._state_lock.write():
-            super().grow(new_capacity)      # grow_state keeps the placeholder
+            super()._grow(new_capacity)     # grow_state keeps the placeholder
             self.tiered.grow(new_capacity)
 
     def _dirty_blocks(self, state: SinnamonState):

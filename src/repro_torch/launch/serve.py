@@ -1,5 +1,5 @@
-"""Serving launcher for the port: build an index on one device, then serve
-batched queries and report recall against the exact LinScan.
+"""Serving launcher for the port: build an index (one device, or S shards),
+then serve batched queries and report recall against the exact LinScan.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --docs 10000 \
         --queries 64 [--kprime 800] [--budget 16] [--m 60] [--h 1] \
@@ -10,10 +10,10 @@ batched queries and report recall against the exact LinScan.
         [--query-batch 16] [--dataset splade_like] [--device cuda|cpu] \
         [--seed 0] [--wal runs/wal --snapshot-dir runs/snap \
          --snapshot-every 5000 --compact-threshold 0.5] \
-        [--device-budget-mb 64 --tier-chunk-slots 256] \
+        [--device-budget-mb 64 --tier-chunk-slots 256] [--shards 4] \
         [--metrics-port 0] [--serve-port 0 --hold-seconds 60]
 
-Prints ``indexed N docs over 1 shard(s)`` and ``recall@k=... p50=...``,
+Prints ``indexed N docs over S shard(s)`` and ``recall@k=... p50=...``,
 the lines ``repro.launch.serve`` prints.  The corpus and queries are
 drawn by ``repro_torch.data.synth`` (the reference's draws) from ``--seed``
 and ``--seed + 1``; with the default seed they are the reference launcher's.
@@ -38,8 +38,13 @@ whenever the max per-slot overestimate exceeds X.
 ``--device-budget-mb MB`` serves the hot/cold tiered index: the sketch
 stays on the device, the raw rows live in pinned host memory behind a
 device chunk cache of MB MiB (``--tier-chunk-slots`` slots a chunk); the
-answers are the resident index's.  ``--shards`` accepts 1; more raises
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+answers are the resident index's.  ``--shards N`` serves the sharded index
+(``repro_torch.serving.sharded``): N shard states in this one process, all
+on ``--device`` (without it, round robin over the visible CUDA devices),
+the ``--docs`` capacity split over them.  Only the shard count may change
+between runs on one ``--wal`` (the restore is then elastic); with
+``--device-budget-mb`` each shard gets that budget, and
+``--device-budget-mb`` + ``--wal`` + ``--shards > 1`` is refused.
 
 Observability, the front door and robustness take the reference
 launcher's flags, names, defaults and checks (``repro.launch.serve``):
@@ -113,8 +118,8 @@ def parse_args(argv=None):
     ap.add_argument("--compact-threshold", type=float, default=None,
                     metavar="X", help="compact when max sketch drift > X")
     ap.add_argument("--shards", type=int, default=1,
-                    help="shard count; the port serves one (more raises "
-                         "NotImplementedError: ROADMAP Queue 1 item 11)")
+                    help="corpus shards, served by one process (several "
+                         "may share a device)")
     ap.add_argument("--device-budget-mb", type=float, default=None,
                     metavar="MB",
                     help="per-device byte budget for raw vector rows; "
@@ -380,7 +385,8 @@ def main(argv=None):
     for lo in range(0, len(todo), 2048):
         chunk = todo[lo:lo + 2048]
         index.insert_many(chunk.tolist(), idx[chunk], val[chunk])
-    print(f"indexed {index.size} docs over 1 shard(s)", flush=True)
+    print(f"indexed {index.size} docs over "
+          f"{getattr(index, 'n_shards', 1)} shard(s)", flush=True)
     if args.wal and args.snapshot_dir:
         index.snapshot()
         print(f"snapshot written to {args.snapshot_dir}", flush=True)
@@ -402,24 +408,26 @@ def main(argv=None):
         profiler.__enter__()
     recalls = []
     # the exact LinScan's ground truth reads the whole raw store (a tiered
-    # index's logical store, moved to the device for it)
+    # or sharded index's logical state, moved to the device for it)
+    dev = index.device
     state = index.logical_state()
-    store = vecstore.VecStore(state.store.indices.to(index.device),
-                              state.store.values.to(index.device))
+    store = vecstore.VecStore(state.store.indices.to(dev),
+                              state.store.values.to(dev))
+    active, live_ids = state.active.to(dev), state.ids.to(dev)
     for lo in range(0, args.queries, args.query_batch):
         hi = min(lo + args.query_batch, args.queries)
         ids, _ = server.query_many(qi[lo:hi], qv[lo:hi])
         q_dense = vecstore.densify_query(
-            ds.n, index._tensor(qi[lo:hi], torch.int32),
-            index._tensor(qv[lo:hi], torch.float32))
+            ds.n, torch.as_tensor(qi[lo:hi], dtype=torch.int32, device=dev),
+            torch.as_tensor(qv[lo:hi], dtype=torch.float32, device=dev))
         exact = ops.exact_scores_all(store, q_dense)
-        exact = torch.where(state.active[None, :], exact, -torch.inf)
+        exact = torch.where(active[None, :], exact, -torch.inf)
         _, top = topk_desc(exact, min(args.k, index.size))
-        truth = state.ids[top.long()].cpu().numpy()
+        truth = live_ids[top.long()].cpu().numpy()
         for b in range(hi - lo):
             recalls.append(len(set(ids[b].tolist())
                                & set(truth[b].tolist())) / args.k)
-    del store, state
+    del store, state, active, live_ids
     if profiler is not None:
         profiler.__exit__(None, None, None)
         os.makedirs(args.profile_dir, exist_ok=True)

@@ -111,26 +111,31 @@ def _publish(registry, ix, labels):
               "Host-RAM bytes of the cold raw-row backing store.",
               ).set(sum(t.host_bytes() for t in tiers))
 
-    state = getattr(ix, "state", None)
-    if state is not None:
+    # one state, or one per shard (a sharded index's `states`)
+    states = getattr(ix, "states", None)
+    if states is None:
+        state = getattr(ix, "state", None)
+        states = [] if state is None else [state]
+    states = [st for st in states if st is not None]
+    if states:
         def nbytes(t):
             return t.numel() * t.element_size()
 
         # state.u and state.l are views of the stacked sketch [U; L]:
         # count its bytes once.
         mem = {
-            "sketch": nbytes(state.sketch),
-            "inverted_index": nbytes(state.bits),
+            "sketch": sum(nbytes(st.sketch) for st in states),
+            "inverted_index": sum(nbytes(st.bits) for st in states),
             "storage": (sum(t.device_bytes() for t in tiers) if tiers else
-                        nbytes(state.store.indices)
-                        + nbytes(state.store.values)),
+                        sum(nbytes(st.store.indices)
+                            + nbytes(st.store.values) for st in states)),
         }
         for component, n in mem.items():
             gauge("repro_engine_bytes", "Measured device bytes by component.",
                   component=component).set(n)
         gauge("repro_engine_dirty_columns",
               "Sketch columns invalidated by delete-recycle (paper §4.3).",
-              ).set(int(state.dirty.sum()))
+              ).set(sum(int(st.dirty.sum()) for st in states))
 
     try:  # analytic §6.1.2 accounting, comparable across capacity changes
         from repro_torch.eval.tune import spec_index_bytes

@@ -7,8 +7,12 @@
                  rename layout, with the reference's leaves and recipe.
 * ``compact``  — drift metrics + compaction policy (including a background
                  compactor thread) for §4.3 recycled-slot sketch residue.
-* ``durable``  — ``DurableSinnamonIndex``: the single-device WAL-on-write
-                 wrapper with recovery = snapshot + WAL tail.
+* ``durable``  — ``DurableSinnamonIndex`` / ``DurableShardedSinnamonIndex``:
+                 the WAL-on-write wrappers (one WAL partition per shard)
+                 with recovery = snapshot + WAL tail.
 """
 
-from repro_torch.persist.durable import DurableSinnamonIndex  # noqa: F401
+from repro_torch.persist.durable import (  # noqa: F401
+    DurableShardedSinnamonIndex,
+    DurableSinnamonIndex,
+)

@@ -47,13 +47,14 @@ def drift_metrics(index, registry=None) -> dict:
     # drift vector and the state snapshot agree on capacity.
     for _ in range(5):
         per_slot = index.slot_drift()                    # f32[C]
-        state = index.state
-        if per_slot.shape[0] == state.active.shape[0]:
+        # one state, or a sharded index's, in shard order (slot_drift's)
+        states = getattr(index, "states", None) or [index.state]
+        active = np.concatenate([st.active.cpu().numpy() for st in states])
+        if per_slot.shape[0] == active.shape[0]:
             break
     else:
         raise RuntimeError("index capacity kept changing during drift scan")
-    active = state.active.cpu().numpy()
-    dirty = state.dirty.cpu().numpy()
+    dirty = np.concatenate([st.dirty.cpu().numpy() for st in states])
     act = per_slot[active] if active.any() else np.zeros((0,), np.float32)
     out = {
         "mean_overestimate": float(act.mean()) if act.size else 0.0,

@@ -1,9 +1,12 @@
-"""WAL-on-write wrapper around the single-device streaming index.
+"""WAL-on-write wrappers around the streaming indexes.
 
 Counterpart of ``repro.persist.durable``.  ``DurableSinnamonIndex``
 subclasses :class:`repro_torch.core.engine.SinnamonIndex` and logs every
 public mutation to the write-ahead log *before* applying it, so recovery =
 latest snapshot + replay of the WAL tail through the same host code paths.
+``DurableShardedSinnamonIndex`` does the same over
+:class:`repro_torch.serving.sharded.ShardedSinnamonIndex`, one WAL
+partition per shard.
 Replay reproduces slot allocation, free-list order, capacity growth,
 recycled-column merges and compaction points bit for bit: a recovered
 index returns the same ids and scores as the never-restarted one.  The
@@ -58,6 +61,7 @@ from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.persist import snapshot as snaplib
 from repro_torch.persist import wal
+from repro_torch.serving.sharded import ShardedSinnamonIndex, route_many
 
 
 def _host(x, dtype) -> np.ndarray:
@@ -142,8 +146,7 @@ class _DurableOps:
         if (self.compact_threshold is not None
                 and self._ops_since_compact_check >= self.compact_check_every):
             self._ops_since_compact_check = 0
-            st = self.state
-            if bool(torch.any(st.dirty & st.active)):
+            if self._any_recycled():
                 drift = self.slot_drift()
                 if float(drift.max()) > self.compact_threshold:
                     self.compact()
@@ -203,10 +206,108 @@ class _DurableOps:
                         skipped=skipped, pruned_segments=pruned)
         return path
 
+    # -- state hooks (one state here; DurableShardedSinnamonIndex: S) --------
+    def _compaction_base(self):
+        """What a compaction re-encodes from (read under the op lock)."""
+        return self.state
+
+    def _n_dirty(self, base) -> int:
+        return int(base.dirty.sum())
+
+    def _any_recycled(self) -> bool:
+        st = self.state
+        return bool(torch.any(st.dirty & st.active))
+
+    def _release_state(self) -> None:
+        self.state = None
+
+    def _sync_devices(self) -> None:
+        _sync(self.device)
+
+    #: an insert batch must be exactly ``max_nnz`` wide (the single-device
+    #: replay's check); the sharded log pads a narrower batch instead
+    _exact_width = True
+
+    def _log_batch(self, kind: int, ext_ids: list, idx_batch, val_batch
+                   ) -> None:
+        """Append one validated insert or delete batch: one record on
+        partition 0 here; one per owning shard on the sharded index."""
+        arrays = {"ext_ids": np.asarray(ext_ids, np.int64)}
+        if kind == wal.KIND_INSERT:
+            arrays.update(idx=idx_batch, val=val_batch)
+        self._append(0, kind, arrays)
+
+    # -- logged mutations -----------------------------------------------------
+    # Every op validates BEFORE appending to the WAL: a record is only
+    # written for an op that will succeed, so a caller-handled error (bad id,
+    # bad capacity, wrong width) can never leave a poison record that breaks
+    # every future replay.
+
+    def insert_many(self, ext_ids, idx_batch, val_batch) -> None:
+        with self._lock:
+            ext_ids = ext_ids.tolist() if isinstance(ext_ids, torch.Tensor) \
+                else [int(e) for e in ext_ids]
+            idx_batch = _host(idx_batch, np.int32)
+            val_batch = _host(val_batch, np.float32)
+            width = idx_batch.shape[1]
+            if self._exact_width and width != self.spec.max_nnz:
+                raise ValueError(f"batch nnz width {width} != "
+                                 f"max_nnz {self.spec.max_nnz}")
+            if width > self.spec.max_nnz:
+                raise ValueError(f"document nnz {width} > "
+                                 f"max_nnz {self.spec.max_nnz}")
+            if not (len(ext_ids) == idx_batch.shape[0] == val_batch.shape[0]):
+                raise ValueError(
+                    f"batch length mismatch: {len(ext_ids)} ids vs "
+                    f"{idx_batch.shape[0]} idx rows / "
+                    f"{val_batch.shape[0]} val rows")
+            if self._logging:
+                self._log_batch(wal.KIND_INSERT, ext_ids, idx_batch,
+                                val_batch)
+            self._mutations += 1
+            with self._nolog():
+                super().insert_many(ext_ids, idx_batch, val_batch)
+            self._after_ops(len(ext_ids))
+
+    def delete_many(self, ext_ids) -> None:
+        """Logged ``delete_many``: one KIND_DELETE record holding every id
+        (one a shard on the sharded index).  A repeated id is one deletion,
+        deduplicated before logging: it would pass the missing check, get
+        logged, then fail on apply, a poison record."""
+        with self._lock:
+            ext_ids = list(dict.fromkeys(int(e) for e in ext_ids))
+            missing = [e for e in ext_ids if e not in self._id2slot]
+            if missing:
+                raise KeyError(f"unknown document ids: {missing[:5]}")
+            if not ext_ids:
+                return
+            if self._logging:
+                self._log_batch(wal.KIND_DELETE, ext_ids, None, None)
+            self._mutations += 1
+            with self._nolog():
+                super().delete_many(ext_ids)
+            self._after_ops(len(ext_ids))
+
+    def _apply_delete(self, ext_ids) -> None:
+        self.delete_many(ext_ids)
+
+    def grow(self, new_capacity: Optional[int] = None) -> None:
+        """Logged growth to ``new_capacity`` slots (a shard's, on the
+        sharded index; None: double)."""
+        with self._lock:
+            new_c = new_capacity or self.spec.capacity * 2
+            if new_c <= self.spec.capacity or new_c % 32 != 0:
+                raise ValueError("new capacity must be a larger multiple of 32")
+            if self._logging:
+                self._append(0, wal.KIND_GROW, {
+                    "capacity": np.asarray(new_c, np.int64)})
+            self._mutations += 1
+            super().grow(new_c)
+
     def compact(self) -> int:
         """Logged compaction: rebuild dirty sketch columns (see superclass)."""
         with self._lock:
-            if not int(self.state.dirty.sum()):
+            if not self._n_dirty(self._compaction_base()):
                 return 0
             if self._logging:
                 self._append(0, wal.KIND_COMPACT, {})
@@ -225,8 +326,8 @@ class _DurableOps:
         """
         with self._lock:
             mark = self._mutations
-            st = self.state
-        n_dirty = int(st.dirty.sum())
+            st = self._compaction_base()
+        n_dirty = self._n_dirty(st)
         if not n_dirty:
             return 0
         fresh = self._fresh_compaction(st)
@@ -250,8 +351,8 @@ class _DurableOps:
 
         ``restore_fn(arrays, extra) -> (wal_lsn, rebased)`` fills the index
         from the restored snapshot parts; ``rebased`` means the restore was
-        elastic (a sharded-kind snapshot), in which case a fresh snapshot
-        is written so later recoveries skip the rebuild.
+        elastic (another layout or shard count), in which case a fresh
+        snapshot is written so later recoveries skip the rebuild.
         """
         t0 = time.perf_counter()
         snap_lsn = -1
@@ -270,7 +371,7 @@ class _DurableOps:
                 # snapshot so recovery never holds two full copies.  (An
                 # elastic restore re-inserts into the fresh state, so it
                 # must stay.)
-                self.state = None
+                self._release_state()
             t = time.perf_counter()
             arrays, extra = snaplib.restore_parts(self.snapshot_dir, ms)
             timings["read_s"] = time.perf_counter() - t
@@ -278,11 +379,11 @@ class _DurableOps:
             with self._nolog():     # elastic re-inserts must not re-log
                 snap_lsn, rebased = restore_fn(arrays, extra)
             del arrays
-            _sync(self.device)
+            self._sync_devices()
             timings["to_device_s"] = time.perf_counter() - t
         t = time.perf_counter()
         horizon = self._replay(snap_lsn)
-        _sync(self.device)
+        self._sync_devices()
         timings["replay_s"] = time.perf_counter() - t
         timings["replayed_ops"] = self._replayed_ops
         self.recovery_timings = timings
@@ -318,12 +419,13 @@ class _DurableOps:
                 horizon = lsn
         # Records beyond the horizon that repair would drop: a torn final
         # batch reaches at most one-batch past the horizon (one record per
-        # partition).  Anything further means the replay base itself is
+        # shard).  Anything further means the replay base itself is
         # wrong — typically a WAL pruned against a snapshot this open()
         # wasn't given — and "repairing" would silently destroy
         # acknowledged data.
         orphans = [lsn for lsn, _, _ in merged if lsn > horizon]
-        max_batch = max(len(wal.partitions(self.wal_dir)), 1)
+        max_batch = max(len(wal.partitions(self.wal_dir)),
+                        getattr(self, "n_shards", 1))
         if orphans and orphans[-1] > horizon + max_batch:
             raise RuntimeError(
                 f"{self.wal_dir}: WAL records at LSNs {orphans[:3]}"
@@ -399,12 +501,7 @@ class DurableSinnamonIndex(_DurableOps, eng.SinnamonIndex):
             extra["kind"] != "single"))             # cross-layout elastic
         return index
 
-    # -- logged mutations -----------------------------------------------------
-    # Every op validates BEFORE appending to the WAL: a record is only
-    # written for an op that will succeed, so a caller-handled error (bad id,
-    # bad capacity, wrong width) can never leave a poison record that breaks
-    # every future replay.
-
+    # -- logged single-document mutations (validate BEFORE logging) -----------
     def insert(self, ext_id: int, idx, val) -> None:
         with self._lock:
             pi, pv = eng.pad_sparse(idx, val, self.spec.max_nnz)
@@ -417,29 +514,6 @@ class DurableSinnamonIndex(_DurableOps, eng.SinnamonIndex):
                 super().insert(ext_id, pi, pv)
             self._after_ops(1)
 
-    def insert_many(self, ext_ids, idx_batch, val_batch) -> None:
-        with self._lock:
-            ext_ids = ext_ids.tolist() if isinstance(ext_ids, torch.Tensor) \
-                else [int(e) for e in ext_ids]
-            idx_batch = _host(idx_batch, np.int32)
-            val_batch = _host(val_batch, np.float32)
-            if idx_batch.shape[1] != self.spec.max_nnz:
-                raise ValueError(f"batch nnz width {idx_batch.shape[1]} != "
-                                 f"max_nnz {self.spec.max_nnz}")
-            if not (len(ext_ids) == idx_batch.shape[0] == val_batch.shape[0]):
-                raise ValueError(
-                    f"batch length mismatch: {len(ext_ids)} ids vs "
-                    f"{idx_batch.shape[0]} idx rows / "
-                    f"{val_batch.shape[0]} val rows")
-            if self._logging:
-                self._append(0, wal.KIND_INSERT, {
-                    "ext_ids": np.asarray(ext_ids, np.int64),
-                    "idx": idx_batch, "val": val_batch})
-            self._mutations += 1
-            with self._nolog():
-                super().insert_many(ext_ids, idx_batch, val_batch)
-            self._after_ops(len(ext_ids))
-
     def delete(self, ext_id: int) -> None:
         with self._lock:
             if ext_id not in self._id2slot:
@@ -451,38 +525,6 @@ class DurableSinnamonIndex(_DurableOps, eng.SinnamonIndex):
             with self._nolog():
                 super().delete(ext_id)
             self._after_ops(1)
-
-    def delete_many(self, ext_ids) -> None:
-        """Logged :meth:`SinnamonIndex.delete_many`: one KIND_DELETE record
-        holding every id (a repeated id is one deletion, deduplicated
-        before logging so no record can fail on replay)."""
-        with self._lock:
-            ext_ids = list(dict.fromkeys(int(e) for e in ext_ids))
-            missing = [e for e in ext_ids if e not in self._id2slot]
-            if missing:
-                raise KeyError(f"unknown document ids: {missing[:5]}")
-            if not ext_ids:
-                return
-            if self._logging:
-                self._append(0, wal.KIND_DELETE, {
-                    "ext_ids": np.asarray(ext_ids, np.int64)})
-            self._mutations += 1
-            with self._nolog():
-                super().delete_many(ext_ids)
-            self._after_ops(len(ext_ids))
-
-    def _apply_delete(self, ext_ids) -> None:
-        self.delete_many(ext_ids)
-
-    def grow(self, new_capacity: int) -> None:
-        with self._lock:
-            if new_capacity <= self.spec.capacity or new_capacity % 32 != 0:
-                raise ValueError("new capacity must be a larger multiple of 32")
-            if self._logging:
-                self._append(0, wal.KIND_GROW, {
-                    "capacity": np.asarray(new_capacity, np.int64)})
-            self._mutations += 1
-            super().grow(new_capacity)
 
 
 class DurableTieredSinnamonIndex(DurableSinnamonIndex,
@@ -521,3 +563,123 @@ class DurableTieredSinnamonIndex(DurableSinnamonIndex,
                            compact_threshold=compact_threshold,
                            compact_check_every=compact_check_every,
                            snapshot_keep=snapshot_keep)
+
+
+class DurableShardedSinnamonIndex(_DurableOps, ShardedSinnamonIndex):
+    """Sharded streaming index with per-shard WAL partitions (counterpart
+    of ``repro.persist.durable.DurableShardedSinnamonIndex``).
+
+    Each operation batch is routed exactly as the in-memory index routes it
+    and logged to the owning shard's partition (control records — grow,
+    compact — go to partition 0).  LSNs come from one global counter, so the
+    merged log totally orders the stream and elastic recovery onto another
+    shard count (or a single device) replays it through the new routing.
+    Snapshots store the global ``logical_state()`` with the sharded recipe
+    (``snapshot.save``), so both packages recover each other's files.
+    Update batches may be CUDA tensors; each is copied to the host before
+    its records are appended, and the logged host arrays are applied.
+    """
+
+    def __init__(self, spec: eng.EngineSpec, devices=None, *,
+                 n_shards: Optional[int] = None, wal_dir: str,
+                 snapshot_dir: Optional[str] = None,
+                 update_block: int = 32, fsync: bool = True,
+                 segment_bytes: int = 4 << 20,
+                 snapshot_every: Optional[int] = None,
+                 compact_threshold: Optional[float] = None,
+                 compact_check_every: int = 64,
+                 snapshot_keep: int = 3):
+        ShardedSinnamonIndex.__init__(self, spec, devices, n_shards=n_shards,
+                                      update_block=update_block)
+        self._init_durable(wal_dir=wal_dir, snapshot_dir=snapshot_dir,
+                           fsync=fsync, segment_bytes=segment_bytes,
+                           snapshot_every=snapshot_every,
+                           compact_threshold=compact_threshold,
+                           compact_check_every=compact_check_every,
+                           snapshot_keep=snapshot_keep)
+
+    @classmethod
+    def open(cls, spec: eng.EngineSpec, devices=None, *,
+             n_shards: Optional[int] = None, wal_dir: str,
+             snapshot_dir: Optional[str] = None,
+             **kw) -> "DurableShardedSinnamonIndex":
+        """Open-or-recover onto ``devices`` (see ``ShardedSinnamonIndex``).
+
+        If the snapshot was taken with another shard count or layout the
+        restore is elastic (re-route + re-insert from the raw rows, which
+        freshens the sketch) and a new snapshot is written at once, so later
+        recoveries skip the rebuild.
+        """
+        index = cls(spec, devices, n_shards=n_shards, wal_dir=wal_dir,
+                    snapshot_dir=snapshot_dir, **kw)
+        index._recover(lambda arrays, extra: (
+            snaplib.apply_sharded(index, arrays, extra),
+            extra["kind"] != "sharded"              # cross-layout elastic
+            or int(extra["n_shards"]) != index.n_shards))
+        return index
+
+    # -- state hooks -----------------------------------------------------------
+    def _compaction_base(self):
+        return self.states
+
+    def _n_dirty(self, base) -> int:
+        return ShardedSinnamonIndex._n_dirty(base)
+
+    def _any_recycled(self) -> bool:
+        return any(bool(torch.any(st.dirty & st.active))
+                   for st in self.states)
+
+    def _release_state(self) -> None:
+        for sh in self.shards:
+            sh.state = None
+
+    def _sync_devices(self) -> None:
+        self._sync()
+
+    # -- logging -----------------------------------------------------------------
+    _exact_width = False         # narrower batches are padded to max_nnz
+
+    def _log_batch(self, kind: int, ext_ids, idx_batch, val_batch) -> None:
+        """One record per owning shard partition.
+
+        Per-shard sub-batches replay identically to the combined batch:
+        state touched by different shards is disjoint, and within a shard the
+        original batch order is preserved.  Insert payloads are padded to
+        ``max_nnz`` so a cross-layout replay (whose width check is strict)
+        accepts them.
+
+        The batch's LSNs are assigned in shard order but the records are
+        APPENDED in descending-LSN order: if the process dies between
+        appends, the durable subset is missing the batch's first LSN, so the
+        gap rule discards the whole batch on replay — a multi-shard batch is
+        recovered all-or-nothing, never partially.
+        """
+        ext_ids = np.asarray(ext_ids, np.int64)
+        route = route_many(ext_ids, self.n_shards)
+        if kind == wal.KIND_INSERT:
+            idx_batch = self._rows(idx_batch, torch.int32, -1).numpy()
+            val_batch = self._rows(val_batch, torch.float32, 0).numpy()
+        records = []
+        lsn = self._next_lsn
+        for s in np.unique(route).tolist():
+            take = np.flatnonzero(route == s)
+            arrays = {"ext_ids": ext_ids[take]}
+            if kind == wal.KIND_INSERT:
+                arrays["idx"] = idx_batch[take]
+                arrays["val"] = val_batch[take]
+            records.append((s, arrays, lsn))
+            lsn += 1
+        appended = []
+        try:
+            for s, arrays, rec_lsn in reversed(records):
+                self._writer(s).append(kind, arrays, lsn=rec_lsn)
+                appended.append(s)
+        except OSError:
+            # Keep the batch all-or-nothing ON DISK too: the already-durable
+            # higher-LSN records would otherwise pin LSNs that the next op
+            # (which reuses this batch's numbers) collides with.
+            for s in reversed(appended):
+                self._writers[s].unappend()
+            raise
+        self._next_lsn = lsn
+        self._last_lsn = lsn - 1

@@ -10,10 +10,15 @@ spec, id↔slot map, free list, WAL position) rides in the manifest's
 ``extra`` blob.  So a snapshot written by either package restores in the
 other, bit for bit.
 
-The port has one layout, the single-device index.  A snapshot of the
-reference's *sharded* kind (stored unsharded, with per-shard slot maps)
-restores into it elastically: every live document is re-inserted from its
-raw VecStore row, which freshens its sketch column.
+Two layouts, as in the reference.  A single-device index writes the
+``single`` kind; a :class:`~repro_torch.serving.sharded.ShardedSinnamonIndex`
+writes the ``sharded`` kind: the global arrays of its ``logical_state()``
+(the shards concatenated in order, stored unsharded) with the shard count,
+``update_block``, the per-shard free lists and ``id2slot`` as ``[shard,
+slot]`` in the recipe.  A snapshot restores onto any layout: the same
+layout (and shard count) places the state directly, bit for bit; any other
+restores elastically — every live document is re-inserted, in ascending
+id order, from its raw VecStore row, which freshens its sketch column.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.core import bitindex
 from repro_torch.core import engine as eng
 from repro_torch.fault import failpoints as _fp
+from repro_torch.serving.sharded import ShardedSinnamonIndex
 
 # Format history (older formats are refused with an explicit error in
 # restore_parts, as the reference refuses them):
@@ -49,8 +55,9 @@ def _spec_from(d: dict) -> eng.EngineSpec:
 
 def save(snap_dir: str, index, wal_lsn: int, keep: int = 3,
          arrays: Optional[dict] = None) -> str:
-    """Snapshot a :class:`~repro_torch.core.engine.SinnamonIndex` (durable
-    or not); returns the published directory.
+    """Snapshot a :class:`~repro_torch.core.engine.SinnamonIndex` or a
+    :class:`~repro_torch.serving.sharded.ShardedSinnamonIndex` (durable or
+    not); returns the published directory.
 
     ``wal_lsn`` is the LSN of the last operation reflected in the state;
     recovery replays the WAL strictly after it.  The ckpt step is
@@ -60,14 +67,23 @@ def save(snap_dir: str, index, wal_lsn: int, keep: int = 3,
     """
     if arrays is None:
         arrays = convert.state_to_numpy(index.logical_state(), index.spec)
+    sharded = isinstance(index, ShardedSinnamonIndex)
     extra = {
         "format": FORMAT,
-        "kind": "single",
-        "spec": _spec_dict(index.spec),
+        "kind": "sharded" if sharded else "single",
+        "spec": _spec_dict(index.spec),       # per-shard spec when sharded
         "wal_lsn": int(wal_lsn),
-        "free": list(map(int, index._free)),
-        "id2slot": {str(k): int(v) for k, v in index._id2slot.items()},
     }
+    if sharded:
+        extra["n_shards"] = index.n_shards
+        extra["update_block"] = index.update_block
+        extra["free"] = [list(map(int, f)) for f in index._free]
+        extra["id2slot"] = {str(k): [int(v[0]), int(v[1])]
+                            for k, v in index._id2slot.items()}
+    else:
+        extra["free"] = list(map(int, index._free))
+        extra["id2slot"] = {str(k): int(v)
+                            for k, v in index._id2slot.items()}
     return ckpt.save(snap_dir, int(wal_lsn) + 1, arrays, keep=keep,
                      extra=extra, dtypes=convert.leaf_dtypes(index.spec))
 
@@ -102,9 +118,11 @@ def adopt_strays(snap_dir: str) -> None:
 
 
 def matches_layout(extra: dict, index) -> bool:
-    """Does a snapshot recipe describe ``index``'s layout?  The port's
-    index is single-device, so: is the snapshot of the single kind?"""
-    return extra.get("kind") == "single"
+    """Does a snapshot recipe describe ``index``'s layout (kind + shards)?"""
+    sharded = isinstance(index, ShardedSinnamonIndex)
+    if extra.get("kind") != ("sharded" if sharded else "single"):
+        return False
+    return not sharded or int(extra["n_shards"]) == index.n_shards
 
 
 def expected_leaves(spec: eng.EngineSpec) -> dict:
@@ -213,6 +231,28 @@ def apply_single(index: eng.SinnamonIndex, arrays: dict, extra: dict) -> int:
     return int(extra["wal_lsn"])
 
 
+def apply_sharded(index: ShardedSinnamonIndex, arrays: dict,
+                  extra: dict) -> int:
+    """Fill an existing sharded index from restored parts.  Returns
+    wal_lsn.
+
+    A sharded snapshot with the index's shard count places each shard's
+    block of the global arrays on the shard's device (every state leaf, the
+    free lists and the slot map bit for bit).  Another shard count, or a
+    single-kind snapshot, restores elastically (:func:`_reinsert_live`).
+    """
+    if (extra["kind"] != "sharded"
+            or index.n_shards != int(extra["n_shards"])):
+        return _reinsert_live(index, arrays, extra)
+    with index._state_lock.write():
+        index.spec = _spec_from(extra["spec"])
+        index.adopt_leaves(arrays)
+        index._free = [[int(s) for s in f] for f in extra["free"]]
+        index._id2slot = {int(k): (int(v[0]), int(v[1]))
+                          for k, v in extra["id2slot"].items()}
+    return int(extra["wal_lsn"])
+
+
 def load_single(snap_dir: str, device=None) -> Tuple[eng.SinnamonIndex, int]:
     """Rebuild a SinnamonIndex from the newest snapshot on ``device`` (None:
     the CUDA card).  Returns (index, wal_lsn)."""
@@ -225,3 +265,24 @@ def load_single(snap_dir: str, device=None) -> Tuple[eng.SinnamonIndex, int]:
         return index, int(extra["wal_lsn"])
     index = eng.SinnamonIndex(spec, device=device)
     return index, apply_single(index, arrays, extra)
+
+
+def load_sharded(snap_dir: str, devices=None, *,
+                 n_shards: Optional[int] = None
+                 ) -> Tuple[ShardedSinnamonIndex, int]:
+    """Rebuild a ShardedSinnamonIndex from the newest snapshot onto
+    ``devices`` (see ``ShardedSinnamonIndex``; ``n_shards`` None: the
+    snapshot's shard count, or one shard per device for a single-kind
+    snapshot).  Returns (index, wal_lsn); :func:`apply_sharded` gives the
+    elastic semantics.  A single-kind snapshot's spec describes the whole
+    corpus and is used as the per-shard spec unchanged, as the reference
+    does.
+    """
+    arrays, extra = restore_parts(snap_dir)
+    if n_shards is None and extra["kind"] == "sharded":
+        n_shards = int(extra["n_shards"])
+    index = ShardedSinnamonIndex(_spec_from(extra["spec"]), devices,
+                                 n_shards=n_shards,
+                                 update_block=int(extra.get("update_block",
+                                                            32)))
+    return index, apply_sharded(index, arrays, extra)

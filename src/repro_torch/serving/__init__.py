@@ -11,8 +11,9 @@ Two levels:
   dispatches, plus the stdlib HTTP/JSON endpoint.
 
 `repro_torch.serving.loadgen` drives offered-load sweeps against either
-level.  The reference's ``ShardedSinnamonIndex`` is not ported yet
-(ROADMAP Queue 1 item 11).
+level.  `ShardedSinnamonIndex` / `TieredShardedSinnamonIndex`
+(`repro_torch.serving.sharded`) serve S corpus shards from one process;
+`QueryServer` and the front door serve them unchanged.
 """
 
 from repro_torch.serving import loadgen
@@ -26,6 +27,10 @@ from repro_torch.serving.frontend import (
 )
 from repro_torch.serving.results import QueryResult, new_trace_id
 from repro_torch.serving.serve import QueryServer
+from repro_torch.serving.sharded import (
+    ShardedSinnamonIndex,
+    TieredShardedSinnamonIndex,
+)
 
 __all__ = [
     "DeadlineExceeded",
@@ -35,7 +40,9 @@ __all__ = [
     "QueryServer",
     "Rejected",
     "ServingFrontend",
+    "ShardedSinnamonIndex",
     "TenantQuota",
+    "TieredShardedSinnamonIndex",
     "loadgen",
     "new_trace_id",
 ]

@@ -1,5 +1,5 @@
-"""Host-side query serving over one index (counterpart of
-``repro.serving.serve``).
+"""Host-side query serving over one index, single-device or sharded
+(counterpart of ``repro.serving.serve``).
 
 ``QueryServer.query`` / ``query_many`` return a :class:`QueryResult`.
 Every query reports into a metrics registry (``repro_torch.obs``, the
@@ -31,6 +31,7 @@ from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs.instrument import install_engine_gauges
 from repro_torch.obs.trace import Trace, TraceContext
 from repro_torch.serving.results import QueryResult
+from repro_torch.serving.sharded import ShardedSinnamonIndex
 
 #: Stage names of the staged (traced) query path, in order.
 QUERY_STAGES = ("admission", "sketch_scan", "topk_merge", "rerank")
@@ -42,7 +43,9 @@ TIERED_QUERY_STAGES = ("admission", "sketch_scan", "prefetch", "rerank")
 
 
 class QueryServer:
-    """Serves one single-device :class:`SinnamonIndex` (durable or not).
+    """Serves one index: a single-device :class:`SinnamonIndex` or a
+    :class:`~repro_torch.serving.sharded.ShardedSinnamonIndex` (durable,
+    tiered or neither).
 
     ``score_backend`` picks the scoring backend per server (``reference |
     grouped | fused``, or ``pallas`` for ``fused``; None -> the index
@@ -51,7 +54,8 @@ class QueryServer:
     e.g. ``ops.make_engine_score_fn()``: kernel C) overrides it; results
     are then labelled ``custom``, no batch runs the staged path and
     ``degrade >= 2`` does not answer sketch-only (it shrinks k' as
-    ``degrade=1`` does).
+    ``degrade=1`` does); nor does it over a sharded index, which has no
+    sketch-only search (as in the reference).
 
     Telemetry as in the reference: ``registry`` (default: the process-global
     ``repro_torch.obs.metrics.get_registry()``; ``NULL_REGISTRY`` turns
@@ -63,7 +67,7 @@ class QueryServer:
     read, so searches from several threads run side by side.
     """
 
-    def __init__(self, index: eng.SinnamonIndex, k: int = 10,
+    def __init__(self, index, k: int = 10,
                  kprime: Optional[int] = 1000, budget: Optional[int] = None,
                  score_fn=None, score_backend: Optional[str] = None,
                  registry=None, event_log=None, trace_every: int = 0,
@@ -170,7 +174,8 @@ class QueryServer:
             if self._since_trace >= self.trace_every:
                 self._since_trace = 0
                 trace = Trace(device=self.index.device)
-        sketch_only = degrade >= 2 and not custom
+        sketch_only = (degrade >= 2 and not custom
+                       and hasattr(self.index, "search_many_sketch"))
         try:
             with ctx.stage("device"):
                 t0 = time.perf_counter()
@@ -254,6 +259,8 @@ class QueryServer:
         """The production search as separate synced steps, one span each;
         results equal ``index.search_many``'s (same operands, same kernels,
         same rerank)."""
+        if isinstance(self.index, ShardedSinnamonIndex):
+            return self._staged_sharded(q_idx, q_val, trace)
         if isinstance(self.index, eng.TieredSinnamonIndex):
             return self._staged_tiered(q_idx, q_val, trace)
         index = self.index
@@ -310,6 +317,18 @@ class QueryServer:
                 out_ids, out_scores = ids.cpu().numpy(), scores.cpu().numpy()
         return out_ids, out_scores
 
+    def _staged_sharded(self, q_idx, q_val, trace: Trace):
+        """A sharded index: ``admission``, then the index records its own
+        synced spans under the reference's names — the whole search as one
+        ``spmd_search``, or on a tiered sharded index ``spmd_candidates``,
+        ``prefetch`` and ``spmd_rerank``; the answer is ``search_many``'s."""
+        with trace.span("admission"):
+            q_idx = torch.as_tensor(q_idx)
+            q_val = torch.as_tensor(q_val)
+        return self.index.search_many(
+            q_idx, q_val, k=self.k, kprime=self.kprime, budget=self.budget,
+            backend=self.score_backend, trace=trace)
+
     # -- stats ---------------------------------------------------------------
     def latency_percentiles(self) -> dict:
         """p50 / p90 / p99 per-query latency (ms) from the registry's
@@ -332,6 +351,6 @@ class QueryServer:
         self.stats["queries"] = 0
         self.last_trace = None
         self._latency_hist(backend).reset()
-        for stage in QUERY_STAGES + TIERED_QUERY_STAGES:
+        for stage in QUERY_STAGES + TIERED_QUERY_STAGES + ("spmd_search",):
             self._hist("repro_query_stage_ms", "",
                        labels={"stage": stage, "backend": backend}).reset()

@@ -3,7 +3,10 @@
 Each CUDA kernel of ``repro_torch`` (A: ``sinnamon_score_topk``, B:
 ``csr_score`` and its rerank form ``csr_rerank_topk``, C: ``sinnamon_score``,
 D: ``embed_bag``) is run at small shapes on CUDA
-tensors and held against its plain-torch twin on the same tensors.  The tests skip
+tensors and held against its plain-torch twin on the same tensors; the
+paths around them (the rows rerank, the front door, the tiered index, the
+sharded index and its tiered and durable forms) are held to their twin
+paths or resident forms on the card.  The tests skip
 when no CUDA device is present; the decision is made inside a fixture, so
 every worker collects the same tests.  Run them on the card with
 
@@ -877,3 +880,131 @@ def test_tiered_bit_equal_to_resident_under_concurrency(cuda):
     assert st["promotions"] > 2 and st["evictions"] > 0
     np.testing.assert_array_equal(
         tiered.search_many(qi, qv, k=10, kprime=2)[1], want[1])
+
+
+def _card_sharded(cuda, cls=None, n_shards=4, docs=3_000, capacity=1_024,
+                  **kw):
+    """The documents of :func:`_card_index` (``docs`` of them) in a sharded
+    index of ``capacity`` slots a shard, every shard on the card."""
+    from repro_torch.serving import sharded
+    ds = synth.SparseDatasetSpec("t", n=2_000, psi_doc=40, psi_query=20)
+    idx, val = synth.make_corpus(0, ds, docs, pad=64)
+    qi, qv = synth.make_queries(1, ds, 48, pad=32)
+    spec = teng.EngineSpec(n=2_000, m=16, h=1, capacity=capacity, max_nnz=64,
+                           value_dtype="bfloat16", seed=3)
+    cls = cls or sharded.ShardedSinnamonIndex
+    index = cls(spec, cuda, n_shards=n_shards, **kw)
+    index.insert_many(list(range(docs)), idx, val)
+    return index, idx, val, qi, qv
+
+
+@pytest.mark.parametrize("kprime", [200, 64])
+def test_sharded_kernel_path_matches_twin_path(cuda, kprime):
+    """Four shards on one card: kernel A and B's rerank S times a batch;
+    the kernel path's ids and locators equal the twin path's and those of
+    the same shards on the CPU, scores within B's rtol = atol = 1e-5."""
+    import repro_torch.kernels as kernels
+    index, _, _, qi, qv = _card_sharded(cuda)
+    kernels.reset_launch_counts()
+    got = index.search_many(qi, qv, 10, kprime=kprime, return_locators=True)
+    counts = kernels.launch_counts()
+    assert counts["sinnamon_score_topk"] == counts["csr_rerank_topk"] == 4
+    assert counts["sinnamon_score"] == counts["csr_score"] == 0
+    twin = index.search_many(qi, qv, 10, kprime=kprime,
+                             return_locators=True, use_kernel=False)
+    cpu, _, _, _, _ = _card_sharded(torch.device("cpu"))
+    on_cpu = cpu.search_many(qi, qv, 10, kprime=kprime, return_locators=True)
+    for want in (twin, on_cpu):
+        np.testing.assert_array_equal(got[0], want[0])          # ids
+        np.testing.assert_array_equal(got[2], want[2])          # locators
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kprime", [64, 800])
+def test_sharded_kernel_path_matches_twin_path_over_tiles(cuda, kprime):
+    """As above on shards of 2.5 of kernel A's tiles (20,480 slots, 20,000
+    documents each), so the per-tile top-k' and the tile merge run over
+    full and partial tiles at the deployment's k'=64 and at k'=800."""
+    import repro_torch.kernels as kernels
+    kw = dict(docs=80_000, capacity=20_480, update_block=4_096)
+    index, _, _, qi, qv = _card_sharded(cuda, **kw)
+    kernels.reset_launch_counts()
+    got = index.search_many(qi, qv, 10, kprime=kprime, return_locators=True)
+    assert kernels.launch_counts()["sinnamon_score_topk"] == 4
+    twin = index.search_many(qi, qv, 10, kprime=kprime,
+                             return_locators=True, use_kernel=False)
+    cpu, _, _, _, _ = _card_sharded(torch.device("cpu"), **kw)
+    on_cpu = cpu.search_many(qi, qv, 10, kprime=kprime, return_locators=True)
+    for want in (twin, on_cpu):
+        np.testing.assert_array_equal(got[0], want[0])          # ids
+        np.testing.assert_array_equal(got[2], want[2])          # locators
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_score_fn_hook_on_card(cuda):
+    """The hook (kernel C once a shard) gives the reference backend's
+    candidates, so the same answer."""
+    import repro_torch.kernels as kernels
+    index, _, _, qi, qv = _card_sharded(cuda)
+    want = index.search_many(qi, qv, 10, kprime=200, backend="reference")
+    kernels.reset_launch_counts()
+    got = index.search_many(qi, qv, 10, kprime=200,
+                            score_fn=ops.make_engine_score_fn())
+    assert kernels.launch_counts()["sinnamon_score"] == 4
+    assert kernels.launch_counts()["sinnamon_score_topk"] == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_sharded_tiered_bit_equal_to_resident_on_card(cuda):
+    """Tiered shards with a 2-line cache (every batch falls back) and with
+    room for every chunk answer as the resident shards, through churn and
+    compaction."""
+    from repro_torch.serving import sharded
+    churn = list(range(0, 3_000, 7))
+
+    def churned(ix, idx, val):
+        ix.delete_many(churn)
+        ix.insert_many(churn, idx[churn], val[churn])
+        return ix.compact()
+
+    resident, idx, val, qi, qv = _card_sharded(cuda)
+    n_res = churned(resident, idx, val)
+    want = resident.search_many(qi, qv, 10, kprime=200)
+    for lines in (2, 64):
+        tiered, _, _, _, _ = _card_sharded(
+            cuda, sharded.TieredShardedSinnamonIndex, tier_chunk_slots=64,
+            cache_chunks=lines)
+        assert churned(tiered, idx, val) == n_res
+        for g, w in zip(tiered.search_many(qi, qv, 10, kprime=200), want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_sharded_durable_recovers_on_card(cuda, tmp_path):
+    """Log, snapshot, a WAL tail; the recovered shards on the card equal
+    the live ones leaf for leaf and answer alike."""
+    from repro_torch import convert
+    from repro_torch.persist import DurableShardedSinnamonIndex
+    ds = synth.SparseDatasetSpec("t", n=2_000, psi_doc=40, psi_query=20)
+    idx, val = synth.make_corpus(0, ds, 2_000, pad=64)
+    qi, qv = synth.make_queries(1, ds, 16, pad=32)
+    spec = teng.EngineSpec(n=2_000, m=16, h=1, capacity=1_024, max_nnz=64,
+                           value_dtype="bfloat16", seed=3)
+    dkw = dict(wal_dir=str(tmp_path / "wal"),
+               snapshot_dir=str(tmp_path / "snap"), fsync=False)
+    live = DurableShardedSinnamonIndex.open(spec, cuda, n_shards=4, **dkw)
+    live.insert_many(list(range(1_500)), torch.from_numpy(idx[:1_500]).to(
+        cuda), torch.from_numpy(val[:1_500]).to(cuda))
+    live.snapshot()
+    live.delete_many(range(0, 1_500, 5))
+    live.insert_many(list(range(1_500, 2_000)), idx[1_500:], val[1_500:])
+    live.compact()
+    rec = DurableShardedSinnamonIndex.open(spec, cuda, n_shards=4, **dkw)
+    a = convert.state_to_numpy(live.logical_state(), live.spec)
+    b = convert.state_to_numpy(rec.logical_state(), rec.spec)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert rec._free == live._free and rec._id2slot == live._id2slot
+    for g, w in zip(rec.search_many(qi, qv, 10, kprime=200),
+                    live.search_many(qi, qv, 10, kprime=200)):
+        np.testing.assert_array_equal(g, w)

@@ -130,22 +130,30 @@ def test_open_index_defaults_to_cuda():
 
 
 def test_open_index_unported_rows_raise(tmp_path):
-    """Sharding is the row not ported yet; the tiered rows (ROADMAP item
-    10) now open their indexes."""
+    """Every row of the reference's routing table opens its index now: the
+    tiered rows (ROADMAP item 10) and the sharded rows (item 11); durable +
+    sharded + tiered raises, as in the reference."""
     from repro_torch.persist import durable
+    from repro_torch.serving import sharded
     dur = tapi.DurabilityConfig(wal_dir=str(tmp_path / "wal"))
-    for kw, item in ((dict(shards=2), "item 11"),
-                     (dict(shards=2, durability=dur), "item 11"),
-                     (dict(shards=2, device_budget_mb=8.0), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            tapi.open_index(tapi.IndexConfig(n=100, capacity=64, **kw),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="durability"):
+        tapi.open_index(tapi.IndexConfig(n=100, capacity=64, shards=2,
+                                         durability=dur,
+                                         device_budget_mb=8.0),
+                        device="cpu")
     for kw, cls in ((dict(device_budget_mb=8.0), teng.TieredSinnamonIndex),
                     (dict(device_budget_mb=8.0, durability=dur),
-                     durable.DurableTieredSinnamonIndex)):
+                     durable.DurableTieredSinnamonIndex),
+                    (dict(shards=2), sharded.ShardedSinnamonIndex),
+                    (dict(shards=2, durability=tapi.DurabilityConfig(
+                        wal_dir=str(tmp_path / "wal2"))),
+                     durable.DurableShardedSinnamonIndex),
+                    (dict(shards=2, device_budget_mb=8.0),
+                     sharded.TieredShardedSinnamonIndex)):
         index = tapi.open_index(tapi.IndexConfig(n=100, capacity=64, **kw),
                                 device="cpu")
         assert type(index) is cls
+        assert getattr(index, "n_shards", 1) == kw.get("shards", 1)
     with pytest.raises(ValueError):
         tapi.IndexConfig(n=100, capacity=64, backend="tpu")
 
@@ -227,7 +235,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for pkg in ("obs", "fault", "checkpoint", "persist", "serving.frontend",
-            "serving.loadgen", "storage.tiered"):
+            "serving.loadgen", "storage.tiered", "serving.sharded",
+            "distributed.mesh", "distributed.topk"):
     assert f"repro_torch.{pkg}" in names, pkg
 assert not any(k.split(".")[0] in BLOCKED for k in sys.modules)
 print(len(names))
@@ -240,7 +249,7 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          cwd=os.path.dirname(os.path.abspath(SRC)))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 58
+    assert int(out.stdout.strip()) >= 62
 
 
 def test_launcher_runs_on_cpu(capsys):

@@ -20,6 +20,8 @@ package (the single-device cases of ``tests/test_tiered_store.py``).
   ``open_index(device_budget_mb=...)``.
 """
 
+import dataclasses
+
 import jax.numpy as jnp  # noqa: F401  (JAX on the CPU, as the suite runs it)
 import numpy as np
 import pytest
@@ -579,9 +581,13 @@ def test_open_index_routes_device_budget(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tapi.open_index(cfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapi.open_index(tapi.IndexConfig(n=N, capacity=64, shards=2,
-                                         device_budget_mb=1.0), device="cpu")
+    from repro_torch.serving.sharded import TieredShardedSinnamonIndex
+    sharded = tapi.open_index(tapi.IndexConfig(n=N, capacity=64, shards=2,
+                                               device_budget_mb=1.0),
+                              device="cpu")
+    assert type(sharded) is TieredShardedSinnamonIndex
+    with pytest.raises(NotImplementedError, match="durability"):
+        tapi.open_index(dataclasses.replace(dcfg, shards=2), device="cpu")
     for bad in (dict(device_budget_mb=0.0), dict(tier_chunk_slots=0)):
         with pytest.raises(ValueError):
             tapi.IndexConfig(n=N, capacity=64, **bad)
