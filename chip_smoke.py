@@ -8,7 +8,7 @@ shard of the paper's MS MARCO deployment (``serve_msmarco``: n=30,000,
 m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
 
 1. device   — the card's name, count and power limit;
-2. build    — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build    — the six CUDA kernels from ``src/repro_torch/kernels/csrc``
               (one nvcc per source, started together), with ptxas's
               registers and shared memory, and kernel C's registers and
               spills per instance (cell type x tile words);
@@ -125,6 +125,30 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               elastically onto 2 and onto one device, equal to fresh
               builds.
               Peak device memory stays < 40 GB.
+10. train   — after 6a/6b, every earlier index and model freed: recsys
+              training.  10a: dlrm-rm2 at full width (26 × 1,000,000 × 64
+              f32 tables) at ``train_batch`` (B=65,536, batches from
+              ``loaders.recsys_batch`` on the host): kernel D's backward
+              (``embed_bag_backward`` on rows 1.. of the [B, 27, 64]
+              buffer's gradient) bit-equal to its twin on the host copy
+              and to a second launch, with its time, the sort's, the
+              twin's on the card, ``index_add_`` into zeros and the byte
+              bound; a twin-path step (``use_kernel=False``) against the
+              kernel path's first step from the same drawn state (loss
+              within rtol 1e-5, parameters within rtol 1e-5 / atol 1e-6);
+              ``train.loop.make_train_step`` with the launcher's AdamW for
+              one warm-up and 8 timed steps (wall p50 / max, samples/s,
+              losses and grad norms finite, D and its backward once a
+              step), a CUDA-event split of one more step (forward,
+              backward with D's backward, clip + AdamW), peak memory < 40
+              GB.  10b: din, sasrec and mind at full config: 3 train steps
+              at B=65,536 (walls, losses, peak memory), 200 ``score``
+              requests at B=512 and 200 ``retrieval_scores`` + top-100 at
+              B=1 (p50 / p99 from host features to host results).  10c:
+              dlrm-rm2 at full widths with 65,536 rows a field (cut from
+              1,000,000): 6 straight steps against 3 + a train-state
+              checkpoint under ``build/`` + restore + 3 (parameters within
+              rtol 1e-5; bitwise reported).
 
 Launch counts are read per path: kernel A and B's rerank kernel
 (``csr_rerank_topk``) must launch on the fused path, C and the rerank
@@ -133,8 +157,11 @@ kernel on the dense path (and A not at all there), D on neither, and
 alone on the recsys path; A and the rerank kernel on the recsys
 retrieval; A and the rerank kernel (``launches_durable``) on the recovered
 durable index; A and the rerank kernel once a shard per batch
-(``launches_sharded``) on the sharded index.  Ends with JSON lines of the
-recsys, durability, front-door, tiered and sharded numbers, a JSON line
+(``launches_sharded``) on the sharded index; D and its backward once a
+step (``launches_train``, and ``launches`` of the backward's row) on the
+DLRM train steps, no kernel on DIN / SASRec / MIND.  Ends with JSON lines
+of the recsys, durability, front-door, tiered, sharded and train numbers,
+a JSON line
 of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
@@ -624,13 +651,21 @@ def main(argv=None) -> int:
     del q_idx, q_val
     gc.collect()
     torch.cuda.empty_cache()
-    d_row, recsys_line = recsys_path(args.seed, dev, card)
+    with torch.no_grad():               # serving: no autograd graph
+        d_row, recsys_line = recsys_path(args.seed, dev, card)
     kernel_rows.append(d_row)
+
+    # -- 10. recsys training: dlrm-rm2, din, sasrec, mind; resume ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_row, train_line, train_counts = train_path(args.seed, dev, card)
+    kernel_rows.append(bwd_row)
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
         row["launches_tiered"] = tiered_counts[row["name"]]
         row["launches_sharded"] = sharded_counts[row["name"]]
+        row["launches_train"] = train_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -643,6 +678,7 @@ def main(argv=None) -> int:
     print(json.dumps({"frontdoor": frontdoor_line}), flush=True)
     print(json.dumps({"tiered": tiered_line}), flush=True)
     print(json.dumps({"sharded": sharded_line}), flush=True)
+    print(json.dumps({"train": train_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1727,7 +1763,8 @@ def sharded_path(q_idx, q_val, seed, dev, card, cdf):
             got = kernels.launch_counts()
             want = {"sinnamon_score_topk": SHARDS * n_batches,
                     "csr_rerank_topk": SHARDS * n_batches,
-                    "sinnamon_score": 0, "embed_bag": 0, "csr_score": 0}
+                    "sinnamon_score": 0, "embed_bag": 0, "csr_score": 0,
+                    "embed_bag_backward": 0}
             if got != want:
                 raise AssertionError(f"sharded launches at B={bsz}, "
                                      f"k'={kp}: {got}, want {want}")
@@ -1879,7 +1916,8 @@ def sharded_hook(index, qi, qv, fused_ids):
     counts = kernels.launch_counts()
     if counts != {"sinnamon_score_topk": 0, "csr_score": 0,
                   "sinnamon_score": index.n_shards, "embed_bag": 0,
-                  "csr_rerank_topk": index.n_shards}:
+                  "csr_rerank_topk": index.n_shards,
+                  "embed_bag_backward": 0}:
         raise AssertionError(f"hook launches {counts}")
     for s, st in enumerate(index.states):
         cv, cs = eng.topk_candidates(st, index.spec, qi, qv, KPRIME,
@@ -2189,6 +2227,496 @@ def kernel_d_against_twin(gen, dev, seed: int) -> None:
         f"the twin ({Bs} x {Fs} bags into a [{Bs}, {Fs + 1}, 64] buffer, "
         f"row 0 untouched; f32 and bf16 tables, hot 1 and 4, weights and "
         f"none)")
+
+
+TRAIN_TIMED = 8                   # phase 10a: timed steps after one warm-up
+SEQ_TRAIN_STEPS = 3               # phase 10b: train steps a model
+SEQ_REQUESTS = 200                # phase 10b: requests a serving shape
+RESUME_VOCAB = 65_536             # phase 10c: rows a field (of 1,000,000)
+RESUME_STEPS = 6                  # phase 10c: 3 + save + restore + 3
+
+
+def train_path(seed: int, dev, card: str):
+    """Phase 10: recsys training on the card (10a dlrm-rm2 at full width
+    and the train batch, 10b din / sasrec / mind at full config, 10c
+    resume).  Returns (kernel D's backward JSON row, the train JSON line,
+    the launch counts of 10a's train steps)."""
+    import torch
+
+    from repro_torch.configs import dlrm_rm2
+
+    t_phase = time.perf_counter()
+    cfg = dlrm_rm2.full_config()
+    B = dlrm_rm2.SHAPES["train_batch"]["batch"]
+    bwd_row, line, counts = dlrm_train(cfg, B, seed, dev, card)
+    for arch in ("din", "sasrec", "mind"):
+        line[arch] = seq_model_train_serve(arch, B, seed, dev)
+    line["resume"] = train_resume(cfg, B, seed, dev)
+    line["wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    log(f"[10 train] phase {line['wall_s']:.1f}s ({card})")
+    return bwd_row, line, counts
+
+
+def _fresh_dlrm(cfg, seed, dev, draw=True):
+    import torch
+
+    from repro_torch.models import recsys
+    gen = torch.Generator(device=dev).manual_seed(seed) if draw else None
+    return recsys.DLRM(cfg, gen, device=dev, draw=draw)
+
+
+def _dlrm_on_card(hb, dev):
+    """The fields DLRM's loss reads, copied to the card."""
+    return hb._replace(dense=hb.dense.to(dev), sparse=hb.sparse.to(dev),
+                       labels=hb.labels.to(dev))
+
+
+def _seq_on_card(hb, dev):
+    """The fields DIN / SASRec / MIND read, copied to the card."""
+    return hb._replace(hist=hb.hist.to(dev), target=hb.target.to(dev),
+                       labels=hb.labels.to(dev))
+
+
+def _new_peak() -> None:
+    """Keep the run's peak so far, then count a new phase's own."""
+    import torch
+    _PEAK_BEFORE_RESET[0] = max(_PEAK_BEFORE_RESET[0],
+                                torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def dlrm_train(cfg, B: int, seed: int, dev, card: str):
+    """10a: kernel D's backward against its twin at the train batch, a
+    twin-path step against the kernel path's first step from the same
+    state, then 8 timed steps and a CUDA-event split of one more."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.data import loaders
+    from repro_torch.kernels import embed_bag
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    _new_peak()
+    steps = 1 + TRAIN_TIMED
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, decay_steps=steps)
+    t0 = time.perf_counter()
+    hbs = [loaders.recsys_batch(seed, s, B, cfg, device="cpu")
+           for s in range(steps + 1)]
+    log(f"[10a train] {cfg.name}: {steps + 1} host batches of {B} drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    F, V, D = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
+
+    # -- kernel D's backward at the train batch, against its twin ----------
+    model = _fresh_dlrm(cfg, seed, dev)
+    b0 = _dlrm_on_card(hbs[0], dev)
+    vecs = model.interaction_input(b0.dense, b0.sparse)
+    loss = recsys._bce(model.head(vecs), b0.labels)
+    (g_vecs,) = torch.autograd.grad(loss, vecs)
+    del vecs, loss
+    grad = g_vecs[:, 1:]                     # the view the backward reads
+    sparse = b0.sparse.to(torch.int32).contiguous()
+    got = embed_bag.embed_bag_backward(grad, sparse, V)
+    again = embed_bag.embed_bag_backward(grad, sparse, V)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    del again
+    t0 = time.perf_counter()
+    got_host = got.cpu()
+    del got
+    want = embed_bag.embed_bag_backward_plain(grad.cpu(), sparse.cpu(), V)
+    bit_equal = torch.equal(got_host.view(torch.int32),
+                            want.view(torch.int32))
+    err = 0.0 if bit_equal else finite_max_err(got_host, want)
+    del got_host, want
+    log(f"[10a train] embed_bag_backward at B={B}: [{F}, {V}, {D}] f32 "
+        f"gradient from rows 1.. of the [{B}, {F + 1}, {D}] buffer's "
+        f"gradient: {'bit-equal' if bit_equal else 'NOT bit-equal'} to the "
+        f"twin on the host copy (max abs err {err:.3g}; host check "
+        f"{time.perf_counter() - t0:.1f}s); two launches "
+        f"{'bit-equal' if same else 'DIFFER'}")
+    if not (bit_equal and same):
+        raise AssertionError("kernel D's backward != its twin, or not "
+                             "deterministic")
+    row = backward_times(grad, sparse, V, card)
+    row["max_abs_err"] = err
+    del g_vecs, grad, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- a twin-path step from the fresh state ---------------------------
+    t0 = time.perf_counter()
+    model = _fresh_dlrm(cfg, seed, dev)
+    step = loop.make_train_step(
+        lambda p, b: (recsys.loss(p, b, cfg, use_kernel=False), {}), opt_cfg)
+    st, m = step(loop.init_state(model), b0)
+    twin_loss = float(m["loss"])
+    twin = {k: t.detach().cpu() for k, t in model.leaves().items()}
+    del st, m, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_twin = time.perf_counter() - t0
+
+    # -- the kernel path: one warm-up step, then the timed steps ------------
+    model = _fresh_dlrm(cfg, seed, dev)
+    state = loop.init_state(model)
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        *model.leaves().values(), *state.opt.m.values(),
+        *state.opt.v.values()))
+    step = loop.make_train_step(
+        lambda p, b: (recsys.loss(p, b, cfg), {}), opt_cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, _dlrm_on_card(hbs[0], dev))
+    losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+    t_first = time.perf_counter() - t0
+    diffs = {}
+    for k, t in model.leaves().items():
+        a = t.detach().cpu()
+        diffs[k] = float((a - twin[k]).abs().max())
+        if not torch.allclose(a, twin[k], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"kernel-path step != twin-path step at "
+                                 f"{k}: max abs diff {diffs[k]:.3g}")
+        del a
+    del twin
+    if abs(losses[0] - twin_loss) > 1e-5 * abs(twin_loss):
+        raise AssertionError(f"kernel-path loss {losses[0]} != twin-path "
+                             f"loss {twin_loss}")
+    log(f"[10a train] first step from the drawn state: kernel path loss "
+        f"{losses[0]!r}, twin path {twin_loss!r}; parameters within rtol "
+        f"1e-5 / atol 1e-6, max abs diff {max(diffs.values()):.3g} "
+        f"(tables {diffs['tables']:.3g}); twin step + host copy "
+        f"{t_twin:.1f}s, kernel step {t_first * 1e3:.1f} ms")
+    walls = []
+    for s in range(1, steps):
+        t0 = time.perf_counter()
+        state, m = step(state, _dlrm_on_card(hbs[s], dev))
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    counts = kernels.launch_counts()
+    if not np_all_finite(losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{norms}")
+    for k in ("embed_bag", "embed_bag_backward"):
+        if counts[k] != steps:
+            raise AssertionError(f"{k} launched {counts[k]} times in "
+                                 f"{steps} train steps")
+    check_path_launches(counts, "train", ("embed_bag", "embed_bag_backward"),
+                        ("sinnamon_score_topk", "csr_score",
+                         "sinnamon_score", "csr_rerank_topk"))
+    split = step_split(model, state, hbs[steps], cfg, opt_cfg, dev)
+    peak = torch.cuda.max_memory_allocated()
+    w = sorted(walls)
+    p50 = w[len(w) // 2] if len(w) % 2 else (w[len(w) // 2 - 1]
+                                             + w[len(w) // 2]) / 2
+    log(f"[10a train] {TRAIN_TIMED} timed steps at B={B}: wall p50 "
+        f"{p50:.2f} ms, max {max(walls):.2f} ms, "
+        f"{B * len(walls) / (sum(walls) / 1e3):.0f} samples/s (batch "
+        f"copied to the card inside the clock); losses {losses}; grad "
+        f"norms {norms}; launches {counts}")
+    log(f"[10a train] one step split (CUDA events): forward "
+        f"{split['forward_ms']:.3f} ms, backward {split['backward_ms']:.3f} "
+        f"ms (kernel D's backward {split['d_backward_ms']:.3f} ms of it, "
+        f"operand sort included), clip + AdamW {split['update_ms']:.3f} ms; "
+        f"train state {state_bytes} B; peak device memory "
+        f"{peak / 1e9:.2f} GB ({card})")
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"phase 10a peak device memory "
+                             f"{peak / 1e9:.2f} GB >= "
+                             f"{PEAK_MEMORY_MAX / 1e9:.0f} GB")
+    row["launches"] = counts["embed_bag_backward"]
+    line = {"dlrm": {"model": cfg.name, "batch": B, "timed_steps":
+                     len(walls), "step_p50_ms": p50,
+                     "step_max_ms": max(walls), "step_walls_ms": walls,
+                     "samples_per_s": B * len(walls) / (sum(walls) / 1e3),
+                     "split_ms": split, "losses": losses,
+                     "grad_norms": norms, "state_bytes": state_bytes,
+                     "peak_bytes": peak, "twin_step": {
+                         "loss": twin_loss, "kernel_loss": losses[0],
+                         "max_abs_param_diff": diffs},
+                     "backward_bit_equal": bit_equal,
+                     "backward_deterministic": same}}
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, line, counts
+
+
+def step_split(model, state, hb, cfg, opt_cfg, dev) -> dict:
+    """CUDA events around one train step's forward, backward (and kernel D's
+    backward inside it, through ``ops.embed_bag_backward``) and the clip +
+    AdamW update, the step the train loop takes."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    orig = ops.embed_bag_backward
+
+    def timed(*a, **k):
+        ev[4].record()
+        out = orig(*a, **k)
+        ev[5].record()
+        return out
+
+    b = _dlrm_on_card(hb, dev)
+    for p in model.parameters():
+        p.grad = None
+    ops.embed_bag_backward = timed
+    try:
+        ev[0].record()
+        loss = recsys.loss(model, b, cfg)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        adamw.update(model.leaves(grad=True), state.opt,
+                     model.leaves(), opt_cfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+    finally:
+        ops.embed_bag_backward = orig
+        for p in model.parameters():
+            p.grad = None
+    return {"forward_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "d_backward_ms": ev[4].elapsed_time(ev[5]),
+            "update_ms": ev[2].elapsed_time(ev[3])}
+
+
+def backward_times(grad, sparse, V: int, card: str) -> dict:
+    """Kernel D's backward at the train batch: CUDA events of the wrapper
+    (operand sort + kernel), of the sort alone, of the twin on the card
+    (``index_add_`` with atomics) and of ``index_add_`` into a zeroed
+    [F·V, D] buffer over the same flat rows (the library yardstick; its
+    rows and sources prepared outside the clock), and the byte bound."""
+    import torch
+
+    from repro_torch.kernels import embed_bag
+    B, F, D = grad.shape
+    ms = cuda_ms(lambda: embed_bag.embed_bag_backward(grad, sparse, V), 5)
+    prep_ms = cuda_ms(lambda: embed_bag.backward_operands(sparse, V), 5)
+    plain_ms = cuda_ms(lambda: embed_bag.embed_bag_backward_plain(
+        grad, sparse, V), 3)
+    hot = sparse.shape[-1]
+    offs = torch.arange(F, device=sparse.device)[None, :, None] * V
+    rows = torch.where(sparse >= 0, sparse.long() + offs, -1).reshape(-1)
+    keep = rows >= 0
+    rows_v = rows[keep]
+    src = grad.reshape(B, F, 1, D).expand(B, F, hot, D).reshape(-1, D)[keep]
+    lib_ms = cuda_ms(lambda: torch.zeros((F * V, D), device=grad.device)
+                     .index_add_(0, rows_v, src), 5)
+    n_valid = int(keep.sum())
+    bags_read = int((sparse >= 0).any(-1).sum())
+    nbytes = F * V * D * 4 + bags_read * D * 4 + sparse.numel() * 4
+    ops_ = n_valid * D
+    bound = max(nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S) * 1e3
+    del rows, keep, rows_v, src
+    log(f"[10a train] embed_bag_backward: {ms:.4f} ms a call (operand sort "
+        f"{prep_ms:.4f} ms of it), twin on the card {plain_ms:.4f} ms, "
+        f"index_add_ into zeros {lib_ms:.4f} ms; bound {bound:.4f} ms "
+        f"(bytes: {nbytes} B = the dense f32 gradient written once, "
+        f"{bags_read} bag gradient rows with a valid slot, the indices; "
+        f"{n_valid} valid slots) ({card})")
+    return {"name": "embed_bag_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embed_bag_backward.cu",
+            "replaces": "src/repro/kernels/embed_bag.py:60",
+            "replaces_note": "the gradient of kernel D; the TPU kernel has "
+                             "none (the reference differentiates its jnp "
+                             "gather, src/repro/models/recsys.py:105-113)",
+            "ms": ms, "prep_ms": prep_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "library": "torch.zeros + Tensor.index_add_ over the flat rows",
+            "bound_bytes": nbytes, "valid_slots": n_valid,
+            "shape": [B, F, D, hot, V]}
+
+
+def seq_model_train_serve(arch: str, B: int, seed: int, dev) -> dict:
+    """10b: ``arch`` at full config: 3 train steps at the train batch
+    (wall time, loss, peak memory), one more under ``torch.profiler``
+    (busy share, largest kernels), then ``score`` at serve_p99 and
+    ``retrieval_scores`` + top-100 at retrieval_cand, each request timed
+    from host features to host results."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import registry
+    from repro_torch.data import loaders
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    mod = registry.get(arch)
+    cfg = mod.full_config()
+    _new_peak()
+    t0 = time.perf_counter()
+    model = recsys.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev)
+    hbs = [loaders.recsys_batch(seed, s, B, cfg, device="cpu")
+           for s in range(SEQ_TRAIN_STEPS)]
+    t_setup = time.perf_counter() - t0
+    step = loop.make_train_step(
+        lambda p, b: (recsys.loss(p, b, cfg), {}),
+        adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                          decay_steps=SEQ_TRAIN_STEPS))
+    state = loop.init_state(model)
+    kernels.reset_launch_counts()
+    walls, losses = [], []
+    for s in range(SEQ_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, _seq_on_card(hbs[s], dev))
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t1) * 1e3)
+    train_peak = torch.cuda.max_memory_allocated()
+    if not np_all_finite(losses):
+        raise AssertionError(f"{arch}: non-finite losses {losses}")
+    held = [state]
+    b_prof = _seq_on_card(hbs[0], dev)
+
+    def one_step():
+        held[0], _ = step(held[0], b_prof)
+
+    prof = busy_summary(*device_profile(one_step, 1))
+    log(f"[10b {arch}] one train step under torch.profiler: wall "
+        f"{prof['wall_ms']:.2f} ms, device busy "
+        + ("not measured" if prof["busy_share"] is None else
+           f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.3f}); "
+           "largest: " + "; ".join(f"{k} {v:.2f} ms" for k, v in
+                                   prof["top_kernels_ms"].items())))
+    del state, step, hbs, held, b_prof
+    gc.collect()
+    out = {"train_batch": B, "train_walls_ms": walls, "losses": losses,
+           "train_peak_bytes": train_peak, "setup_s": t_setup,
+           "train_profile": prof}
+    k_ret = mod.SHAPES["retrieval_cand"]["k"]
+    for name, bsz in (("serve_p99", mod.SHAPES["serve_p99"]["batch"]),
+                      ("retrieval_cand",
+                       mod.SHAPES["retrieval_cand"]["batch"])):
+        reqs = [loaders.recsys_batch(seed, 20_000 + i, bsz, cfg,
+                                     device="cpu")
+                for i in range(SEQ_REQUESTS + 1)]
+
+        def serve(hb, name=name):
+            b = _seq_on_card(hb, dev)
+            if name == "serve_p99":
+                return recsys.score(model, b, cfg).cpu()
+            top = torch.topk(recsys.retrieval_scores(model, b, cfg), k_ret)
+            return top.values.cpu()
+
+        serve(reqs[-1])
+        lat = []
+        for hb in reqs[:-1]:
+            t1 = time.perf_counter()
+            res = serve(hb)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            want = (bsz,) if name == "serve_p99" else (bsz, k_ret)
+            if tuple(res.shape) != want or not torch.isfinite(res).all():
+                raise AssertionError(f"{arch} {name}: bad output "
+                                     f"{tuple(res.shape)}")
+        out[name] = {"batch": bsz, **request_latency(lat, bsz)}
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{arch}: a kernel ran ({counts}); its gathers "
+                             f"are torch indexing")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[10b {arch}] {cfg.name} (D={cfg.embed_dim}, "
+        f"{cfg.n_items} items, seq {cfg.seq_len}): {SEQ_TRAIN_STEPS} train "
+        f"steps at B={B}: walls {[round(x, 2) for x in walls]} ms, losses "
+        f"{losses}, peak {train_peak / 1e9:.2f} GB; serve_p99 p50 "
+        f"{out['serve_p99']['p50']:.3f} / p99 {out['serve_p99']['p99']:.3f}"
+        f" ms; retrieval_cand p50 {out['retrieval_cand']['p50']:.3f} / p99 "
+        f"{out['retrieval_cand']['p99']:.3f} ms ({SEQ_REQUESTS} requests "
+        f"each)")
+    if out["peak_bytes"] >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"{arch} peak device memory "
+                             f"{out['peak_bytes'] / 1e9:.2f} GB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resume(cfg, B: int, seed: int, dev) -> dict:
+    """10c: dlrm-rm2 at full widths with each field cut to RESUME_VOCAB
+    rows: 6 straight steps against 3 steps, a train-state checkpoint
+    (``launch.train.save``) under ``build/``, a restore into an
+    uninitialised model and 3 more steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.data import loaders
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(cfg, vocab_per_field=RESUME_VOCAB,
+                              n_items=RESUME_VOCAB)
+    hbs = [loaders.recsys_batch(seed, s, B, cfg, device="cpu")
+           for s in range(RESUME_STEPS)]
+    step = loop.make_train_step(
+        lambda p, b: (recsys.loss(p, b, cfg), {}),
+        adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                          decay_steps=RESUME_STEPS))
+    half = RESUME_STEPS // 2
+
+    def run(state, lo, hi):
+        for s in range(lo, hi):
+            state, _ = step(state, _dlrm_on_card(hbs[s], dev))
+        return state
+
+    straight, _ = convert.train_state_to_numpy(
+        run(loop.init_state(_fresh_dlrm(cfg, seed, dev)), 0, RESUME_STEPS))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="train-10c-", dir=root)
+    try:
+        state = run(loop.init_state(_fresh_dlrm(cfg, seed, dev)), 0, half)
+        t0 = time.perf_counter()
+        path = launcher.save(scratch, half, state)
+        t_save = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(path)
+        del state
+        t0 = time.perf_counter()
+        fresh = loop.init_state(_fresh_dlrm(cfg, seed, dev, draw=False))
+        state, at = launcher.restore(scratch, fresh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    if at != half:
+        raise AssertionError(f"restored step {at}, saved {half}")
+    resumed, _ = convert.train_state_to_numpy(run(state, half, RESUME_STEPS))
+    diffs, bitwise = {}, True
+    for k, a in straight.items():
+        b = resumed[k]
+        bitwise &= a.tobytes() == b.tobytes()
+        if not k.startswith(".params/"):
+            continue
+        diffs[k] = float(np.abs(a - b).max())
+        if not np.allclose(b, a, rtol=1e-5, atol=1e-7):
+            raise AssertionError(f"resumed {k} differs from the straight "
+                                 f"run: max abs diff {diffs[k]:.3g}")
+    log(f"[10c resume] {cfg.name} cut to {RESUME_VOCAB} rows a field: "
+        f"{RESUME_STEPS} straight steps against {half} + save ({ckpt_bytes} "
+        f"B in {t_save:.2f}s) + restore ({t_restore:.2f}s) + "
+        f"{RESUME_STEPS - half}: parameters within rtol 1e-5, max abs diff "
+        f"{max(diffs.values()):.3g}; every leaf (m, v, step too) "
+        f"{'bit-equal' if bitwise else 'NOT bit-equal'}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"vocab_per_field": RESUME_VOCAB, "steps": RESUME_STEPS,
+            "checkpoint_bytes": ckpt_bytes, "save_s": t_save,
+            "restore_s": t_restore, "bitwise": bitwise,
+            "max_abs_param_diff": max(diffs.values())}
 
 
 def dlrm_flops(cfg, B: int) -> int:

@@ -24,14 +24,20 @@ CUDA card unless the caller passes ``device="cpu"``.
     repro_torch.persist  — WAL, snapshots, compaction policy,
                            DurableSinnamonIndex, DurableShardedSinnamonIndex
                            (recover either package's files)
-    repro_torch.convert  — carry a reference index's state into the port
-                           and back (snapshot leaves)
+    repro_torch.convert  — carry a reference index's state, recsys
+                           parameters and train states into the port and
+                           back (snapshot and checkpoint leaves)
     repro_torch.data     — synthetic corpora and recsys batches
                            (draw-identical to repro's)
     repro_torch.eval     — recall frontier, §5 bound check, auto-tuner
-    repro_torch.launch   — serving launcher
-    repro_torch.models   — DLRM serving (recsys), its bags on kernel D
-    repro_torch.configs  — dlrm-rm2 and the recsys shape table
+    repro_torch.launch   — serving and training launchers
+    repro_torch.models   — the recsys family (DLRM, DIN, SASRec, MIND),
+                           served and trained; DLRM's bags on kernel D
+                           and its backward kernel
+    repro_torch.optim    — AdamW, int8 error-feedback compression
+    repro_torch.train    — the train step (microbatches, clip, AdamW)
+    repro_torch.configs  — the recsys configs, sinnamon-engine, the
+                           recsys shape table and the arch registry
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,4 @@
 """Model configurations of the port, field for field those of
-``repro.configs`` (so far ``dlrm_rm2`` and the recsys shape table)."""
+``repro.configs``: the recsys family (``dlrm_rm2``, ``din``, ``sasrec``,
+``mind``), ``sinnamon_engine``, the recsys shape table and the arch
+registry."""

@@ -1,0 +1,53 @@
+"""Architecture registry: ``--arch <id>`` resolution for the launchers, as
+``repro.configs.registry``.
+
+``ARCHS`` and ``ASSIGNED`` are the reference's.  The port has the configs
+of the recsys family and of ``sinnamon-engine``; :func:`get` raises
+``NotImplementedError`` naming the ROADMAP item of an arch whose model is
+not ported yet, and :func:`all_cells` yields the cells of the ported archs.
+"""
+import importlib
+
+ARCHS = {
+    "deepseek-67b": "deepseek_67b",
+    "stablelm-12b": "stablelm_12b",
+    "gemma3-27b": "gemma3_27b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "equiformer-v2": "equiformer_v2",
+    "sasrec": "sasrec",
+    "mind": "mind",
+    "din": "din",
+    "dlrm-rm2": "dlrm_rm2",
+    # extra: the paper's own workload (not part of the 40 assigned cells)
+    "sinnamon-engine": "sinnamon_engine",
+}
+
+ASSIGNED = [a for a in ARCHS if a != "sinnamon-engine"]
+
+_LM = "ROADMAP.md, Queue 1 item 12: the LM family"
+_GNN = "ROADMAP.md, Queue 1 item 12: the GNN family"
+#: Archs whose model is not ported yet -> the ROADMAP item that ports it.
+NOT_PORTED = {"deepseek-67b": _LM, "stablelm-12b": _LM, "gemma3-27b": _LM,
+              "llama4-scout-17b-a16e": _LM, "moonshot-v1-16b-a3b": _LM,
+              "equiformer-v2": _GNN}
+
+
+def get(arch: str):
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
+    if arch in NOT_PORTED:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet "
+                                  f"({NOT_PORTED[arch]})")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+
+
+def all_cells(include_extra: bool = False):
+    """(arch, shape name) of every cell of the ported archs, in the
+    reference's order."""
+    names = list(ARCHS) if include_extra else ASSIGNED
+    for a in names:
+        if a in NOT_PORTED:
+            continue
+        for shape in get(a).SHAPES:
+            yield a, shape

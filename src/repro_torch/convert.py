@@ -26,8 +26,13 @@ the shards in order (shard s owns slots ``[s·cap, (s+1)·cap)``).
 back is ``ShardedSinnamonIndex.logical_state()`` (the shards concatenated
 in order) through :func:`state_to_numpy`.
 
-:func:`recsys_params_from_numpy` carries a reference DLRM parameter tree
-the same way into a :class:`repro_torch.models.recsys.DLRM`.
+:func:`recsys_params_from_numpy` carries a reference recsys parameter tree
+(DLRM, DIN, SASRec or MIND) the same way into the port's model, and
+:func:`recsys_params_to_numpy` is its inverse.  :func:`train_state_to_numpy`
+flattens a ``repro_torch.train.loop.TrainState`` to the leaves a JAX
+``TrainState`` checkpoint holds (``.params/<path>``, ``.opt/.m/<path>``,
+``.opt/.v/<path>``, ``.opt/.step``), and :func:`train_state_from_numpy`
+loads such leaves, written by either package, back in place.
 """
 
 from __future__ import annotations
@@ -201,20 +206,115 @@ def sharded_states_from_numpy(leaves: dict, spec: eng.EngineSpec, devices,
             for lv, dev in zip(split_leaves(leaves, len(devices)), devices)]
 
 
-def recsys_params_from_numpy(params: dict, cfg, device=None):
-    """A :class:`~repro_torch.models.recsys.DLRM` holding the reference's
-    DLRM parameters ``{"tables", "bot": {"w0", "b0", ...}, "top": ...}``
-    (numpy arrays, or anything ``np.asarray`` reads), on ``device`` (None:
-    the CUDA card).  Tables are copied as they are; each ``w{i}`` [in, out]
-    becomes the transposed ``nn.Linear.weight`` [out, in]."""
-    from repro_torch.models import recsys
-    model = recsys.DLRM(cfg, device=device, draw=False)
-    dtype = model.tables.dtype
-    leaf = lambda a: cells_from_numpy(np.asarray(a), dtype)  # noqa: E731
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict as {"a/b": leaf}, the reference's leaf paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{"a/b": leaf} as a nested dict (the inverse of
+    :func:`flatten_tree`)."""
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _load(dst: dict, src: dict, what: str) -> None:
+    """Copy host arrays ``src`` into the tensors ``dst`` (same keys and
+    shapes) bit for bit; a raw-bits array becomes the tensor's dtype."""
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: leaves {sorted(src)} != the model's "
+                         f"{sorted(dst)}")
     with torch.no_grad():
-        model.tables.copy_(leaf(params["tables"]))
-        for name in ("bot", "top"):
-            for i, lin in enumerate(getattr(model, name)):
-                lin.weight.copy_(leaf(params[name][f"w{i}"]).t())
-                lin.bias.copy_(leaf(params[name][f"b{i}"]))
+        for k, t in dst.items():
+            a = np.asarray(src[k])
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{what} {k}: {a.shape} != the model's "
+                                 f"{tuple(t.shape)}")
+            if t.dtype.is_floating_point:
+                t.copy_(cells_from_numpy(a, t.dtype).reshape(t.shape))
+            else:
+                t.copy_(torch.from_numpy(np.array(a, order="C")))
+
+
+def recsys_params_from_numpy(params: dict, cfg, device=None):
+    """The port's ``cfg.model`` model (:mod:`repro_torch.models.recsys`)
+    holding the reference's parameter tree (numpy arrays, or anything
+    ``np.asarray`` reads), on ``device`` (None: the CUDA card).  Leaves are
+    copied as they are; DLRM's ``w{i}`` [in, out] becomes the transposed
+    ``nn.Linear.weight`` [out, in]."""
+    from repro_torch.models import recsys
+    if cfg.model not in recsys.MODELS:
+        raise ValueError(f"unknown recsys model {cfg.model!r}")
+    model = recsys.MODELS[cfg.model](cfg, device=device, draw=False)
+    _load(model.leaves(), flatten_tree(params), cfg.model)
     return model
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A C-ordered host copy of ``t`` (raw bits for bf16 / f8), which no
+    later in-place update of ``t`` changes."""
+    return np.array(cells_to_numpy(t.detach()), order="C", copy=True)
+
+
+def recsys_params_to_numpy(model) -> dict:
+    """The reference's parameter tree of a port recsys model, as nested
+    dicts of host numpy arrays (bf16 leaves as their raw uint16 bits); the
+    inverse of :func:`recsys_params_from_numpy`."""
+    return unflatten_tree({k: _host(t) for k, t in model.leaves().items()})
+
+
+def _state_leaves(state) -> dict:
+    """{checkpoint key: tensor} of a TrainState, as the reference names
+    its leaves."""
+    out = {f".params/{k}": t for k, t in state.params.leaves().items()}
+    out.update({f".opt/.m/{k}": t for k, t in state.opt.m.items()})
+    out.update({f".opt/.v/{k}": t for k, t in state.opt.v.items()})
+    out[".opt/.step"] = state.opt.step
+    if state.ef_residual is not None:
+        out.update({f".ef_residual/{k}": t
+                    for k, t in state.ef_residual.items()})
+    return out
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def train_state_to_numpy(state):
+    """(arrays, dtypes) of a TrainState for ``checkpoint.ckpt.save``: host
+    numpy arrays under the reference's keys (``.params/<path>``,
+    ``.opt/.m/<path>``, ``.opt/.v/<path>``, ``.opt/.step``; no leaf for
+    ``ef_residual=None``), and the true dtype of each leaf stored as raw
+    bits."""
+    arrays, dtypes = {}, {}
+    for k, t in _state_leaves(state).items():
+        arrays[k] = _host(t)
+        if _dtype_name(t) in RAW_DTYPES:
+            dtypes[k] = _dtype_name(t)
+    return arrays, dtypes
+
+
+def train_state_expect(state) -> dict:
+    """{key: (shape, dtype name)} of a TrainState's checkpoint leaves, the
+    ``expect`` of ``checkpoint.ckpt.restore``."""
+    return {k: (tuple(t.shape), _dtype_name(t))
+            for k, t in _state_leaves(state).items()}
+
+
+def train_state_from_numpy(arrays: dict, state):
+    """Load a train-state checkpoint's leaves (either package's) into
+    ``state``'s tensors in place; returns ``state``."""
+    _load(_state_leaves(state), arrays, "train state")
+    return state

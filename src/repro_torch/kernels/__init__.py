@@ -15,6 +15,7 @@ WRAPPERS = {"sinnamon_score_topk": _sinn.sinnamon_score_topk,
             "csr_score": _csr.csr_score,
             "sinnamon_score": _sinn.sinnamon_score,
             "embed_bag": _bag.embed_bag,
+            "embed_bag_backward": _bag.embed_bag_backward,
             "csr_rerank_topk": _rr.csr_rerank_topk}
 
 

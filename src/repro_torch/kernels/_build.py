@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 KERNELS = ("sinnamon_score", "csr_score", "sinnamon_dense", "embed_bag",
-           "csr_rerank")
+           "csr_rerank", "embed_bag_backward")
 
 #: Shared memory one block may use on Hopper (sm_90), in bytes.
 SMEM_PER_BLOCK = 232_448

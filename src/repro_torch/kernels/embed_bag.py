@@ -25,6 +25,16 @@ and raises if the build or the launch fails; for CPU tensors it runs the
 plain twins :func:`embed_bag_plain` / :func:`stacked_embed_bag_plain`.
 Kernel and twins run the same float program (``acc = acc + row * w`` per
 slot, pads skipped), so they agree bit for bit.
+
+The gradient with respect to the table is a second kernel,
+``csrc/embed_bag_backward.cu`` (:func:`embed_bag_backward`; the TPU kernel
+has none: the reference differentiates its jnp gather).  Its operand prep
+sorts the (row, slot) pairs stably by row; the kernel sums each row's bag
+gradients in slot order and writes every row of the dense [F, V, D] (or
+[V, D]) gradient once, so two launches give the same bits and the plain
+twin :func:`embed_bag_backward_plain` (``index_add_`` in slot order) the
+same bits too.  :class:`EmbedBag` puts the forward and the backward
+together under autograd; the weights take no gradient.
 """
 
 from __future__ import annotations
@@ -280,3 +290,167 @@ def embed_bag(table: Tensor, indices: Tensor,
 
 
 embed_bag.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The backward: d(bags) / d(table)
+# ---------------------------------------------------------------------------
+
+def embed_bag_backward_plain(grad_bags: Tensor, indices: Tensor, V: int,
+                             weights: Optional[Tensor] = None) -> Tensor:
+    """Plain-torch twin of :func:`embed_bag_backward`: ``index_add_`` of
+    each valid slot's bag gradient (times its weight) into its row, the
+    slots in order (b, f, j).  f32 [F, V, D] from ``grad_bags`` [B, F, D]
+    and ``indices`` [B, F, hot]; [V, D] from [B, D] and [B, hot]."""
+    stacked = indices.dim() == 3
+    B, hot = indices.shape[0], indices.shape[-1]
+    F = indices.shape[1] if stacked else 1
+    D = grad_bags.shape[-1]
+    src = grad_bags.to(torch.float32).reshape(B, F, 1, D).expand(
+        B, F, hot, D)
+    if weights is not None:
+        src = src * weights.reshape(B, F, hot, 1)
+    offs = torch.arange(F, device=indices.device)[None, :, None] * V
+    rows = torch.where(indices.reshape(B, F, hot) >= 0,
+                       indices.reshape(B, F, hot).long() + offs, -1)
+    rows = rows.reshape(-1)
+    keep = rows >= 0
+    out = torch.zeros((F * V, D), dtype=torch.float32,
+                      device=grad_bags.device)
+    out.index_add_(0, rows[keep], src.reshape(-1, D)[keep])
+    return out.view(F, V, D) if stacked else out
+
+
+def backward_operands(indices: Tensor, V: int):
+    """The operand prep of the backward kernel: each slot's output row
+    (f·V + index; a pad gets the sentinel F·V, which sorts last), sorted
+    stably, and the slot of each sorted entry.  Returns (keys int32[n],
+    slots int64[n]), n = B·F·hot."""
+    F = indices.shape[1] if indices.dim() == 3 else 1
+    idx = indices.reshape(indices.shape[0], F, indices.shape[-1])
+    offs = (torch.arange(F, dtype=torch.int32, device=indices.device)
+            * V)[None, :, None]
+    keys = torch.where(idx >= 0, idx + offs, F * V).reshape(-1)
+    keys, slots = torch.sort(keys, stable=True)
+    return keys.to(torch.int32).contiguous(), slots.contiguous()
+
+
+def check_backward_operands(grad_bags: Tensor, indices: Tensor, V: int,
+                            weights: Optional[Tensor]) -> None:
+    """Raise ValueError for what the backward kernel cannot take:
+    ``grad_bags`` not f32 [B, F, D] / [B, D] with unit column stride,
+    indices not contiguous int32 [B, F, hot] /
+    [B, hot] of the gradient's bags, weights not contiguous f32 of the
+    indices' shape, F·V rows outside [0, 2**31), operands on different
+    devices."""
+    dev = grad_bags.device
+    nd = grad_bags.dim()
+    if grad_bags.dtype != torch.float32 or nd not in (2, 3) \
+            or (grad_bags.numel() and grad_bags.stride(-1) != 1):
+        raise _bad("grad_bags", grad_bags, "an f32 [B, F, D] or [B, D] "
+                   "view with unit column stride")
+    if indices.dtype != torch.int32 or indices.dim() != nd \
+            or indices.device != dev or not indices.is_contiguous() \
+            or tuple(indices.shape[:-1]) != tuple(grad_bags.shape[:-1]) \
+            or indices.shape[-1] < 1:
+        raise _bad("indices", indices, f"contiguous int32 "
+                   f"{tuple(grad_bags.shape[:-1])} + (hot >= 1,) on {dev}")
+    if weights is not None and (
+            weights.dtype != torch.float32 or weights.device != dev
+            or weights.shape != indices.shape
+            or not weights.is_contiguous()):
+        raise _bad("weights", weights, f"contiguous f32 "
+                   f"{tuple(indices.shape)} on {dev}")
+    F = indices.shape[1] if nd == 3 else 1
+    if V < 0 or F * V >= 2**31:
+        raise ValueError(f"{F}×{V} rows: want 0 <= F·V < 2**31 (int32 "
+                         f"row keys)")
+
+
+class _BackwardLaunch(ctypes.Structure):
+    """``struct BackwardLaunch`` of ``csrc/embed_bag_backward.cu``."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "n", "rows", "g_bstride", "g_fstride")] + [
+        (n, ctypes.c_int) for n in ("D", "F", "hot", "vec4", "sms", "pad")]
+
+
+def _backward_launcher():
+    lib = _build.load("embed_bag_backward")     # a failed build raises here
+    fn = _FNS.get(lib._name)
+    if fn is None:
+        fn = ctypes.PyDLL(lib._name).embed_bag_backward_launch
+        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
+        _FNS[lib._name] = fn
+    return fn
+
+
+def embed_bag_backward(grad_bags: Tensor, indices: Tensor, V: int,
+                       weights: Optional[Tensor] = None, *,
+                       use_kernel: Optional[bool] = None) -> Tensor:
+    """The gradient of the bag sums with respect to the table: f32
+    [F, V, D] (stacked: ``grad_bags`` [B, F, D], any row and field stride,
+    ``indices`` int32[B, F, hot]) or [V, D] (flat: [B, D] and [B, hot]).
+    Row (f, v) sums ``grad_bags[b, f] * weights[b, f, j]`` (weight 1 where
+    ``weights`` is None) over every slot (b, f, j) naming v, in slot order;
+    rows no slot names are 0.
+
+    ``use_kernel`` None launches the CUDA kernel for CUDA tensors (after
+    :func:`backward_operands`) and runs :func:`embed_bag_backward_plain`
+    for CPU tensors; False forces the twin; True on CPU tensors raises.
+    """
+    check_backward_operands(grad_bags, indices, V, weights)
+    if use_kernel is None:
+        use_kernel = grad_bags.is_cuda
+    if not use_kernel:
+        return embed_bag_backward_plain(grad_bags, indices, V, weights)
+    if not grad_bags.is_cuda:
+        raise ValueError("the CUDA kernel needs CUDA tensors")
+    stacked = indices.dim() == 3
+    F = indices.shape[1] if stacked else 1
+    D = grad_bags.shape[-1]
+    fn = _backward_launcher()
+    keys, slots = backward_operands(indices, V)
+    out = torch.empty((F * V, D), dtype=torch.float32,
+                      device=grad_bags.device)
+    if out.numel():
+        st = _BackwardLaunch(
+            keys.numel(), F * V, grad_bags.stride(0),
+            grad_bags.stride(1) if stacked else 0, D, F, indices.shape[-1],
+            int(D % 4 == 0 and out.data_ptr() % 16 == 0),
+            _build.sm_count(grad_bags.device), 0)
+        err = fn(ctypes.addressof(st), grad_bags.data_ptr(),
+                 keys.data_ptr(), slots.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 out.data_ptr(),
+                 torch._C._cuda_getCurrentRawStream(grad_bags.device.index))
+        _build.check(err, "embed_bag_backward")
+        embed_bag_backward.launches += 1
+    return out.view(F, V, D) if stacked else out
+
+
+embed_bag_backward.launches = 0
+
+
+class EmbedBag(torch.autograd.Function):
+    """:func:`embed_bag` (flat or stacked, kernel or twin as ``use_kernel``
+    says) with its gradient in the table through
+    :func:`embed_bag_backward`.  No model trains the weights, so they take
+    no gradient (``ops.embed_bag`` raises if they ask for one)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, weights, use_kernel):
+        ctx.save_for_backward(indices, weights)
+        ctx.meta = (table.shape[-2], table.dtype, use_kernel)
+        return embed_bag(table, indices, weights, use_kernel=use_kernel)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        indices, weights = ctx.saved_tensors
+        V, dtype, use_kernel = ctx.meta
+        if grad.stride(-1) != 1:
+            grad = grad.contiguous()
+        g = embed_bag_backward(grad, indices, V, weights,
+                               use_kernel=use_kernel)
+        return g.to(dtype), None, None, None

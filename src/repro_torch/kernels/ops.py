@@ -17,7 +17,8 @@ process-wide with the ``REPRO_SCORE_BACKEND`` environment variable.  A
 with a dense scorer.
 
 :func:`embed_bag` (sum | mean) puts kernel D under the recsys models'
-embedding bags, flat or with DLRM's stacked field tables.
+embedding bags, flat or with DLRM's stacked field tables, differentiable
+in the table; :func:`embed_bag_backward` is its gradient kernel.
 
 Each function dispatches on the device of its tensors: the CUDA kernel for
 CUDA tensors, its plain twin for CPU tensors (``use_kernel`` overrides:
@@ -197,7 +198,12 @@ def embed_bag(table: Tensor, indices: Tensor,
     stacked tables [F, V, D] and ``indices`` int32[B, F, hot] (pad -1),
     written into ``out`` when given.  ``weights`` None means ones, which
     the kernel applies itself; ``mean`` divides the weights by each bag's
-    count of valid slots (at least 1), as the reference folds it in."""
+    count of valid slots (at least 1), as the reference folds it in.
+
+    Where autograd records (grad mode on, ``table.requires_grad``) the call
+    goes through ``embed_bag.EmbedBag``, whose backward is kernel D's
+    backward kernel (its twin on CPU tensors); ``out`` and weights that
+    require a gradient then raise ``ValueError``."""
     if mode == "mean":
         counts = (indices >= 0).sum(-1, keepdim=True).clamp_min(1)
         if weights is None:
@@ -208,5 +214,26 @@ def embed_bag(table: Tensor, indices: Tensor,
         raise ValueError(mode)
     if weights is not None:
         weights = weights.contiguous()
+    if torch.is_grad_enabled() and table.requires_grad:
+        if out is not None:
+            raise ValueError("out= is written outside autograd; a table "
+                             "that takes a gradient needs out=None")
+        if weights is not None and weights.requires_grad:
+            raise ValueError("embed_bag's weights take no gradient")
+        return _bag.EmbedBag.apply(table, indices, weights, use_kernel)
     return _bag.embed_bag(table, indices, weights, out=out,
                           use_kernel=use_kernel)
+
+
+def embed_bag_backward(grad_bags: Tensor, indices: Tensor, V: int,
+                       weights: Optional[Tensor] = None, *,
+                       use_kernel: Optional[bool] = None) -> Tensor:
+    """Kernel D's backward: the f32 gradient of :func:`embed_bag`'s bags
+    with respect to the table, [F, V, D] from ``grad_bags`` [B, F, D] (any
+    row and field stride; DLRM passes rows 1.. of its [B, F+1, D] buffer's
+    gradient) or [V, D] from [B, D]; indices as the forward took them."""
+    if grad_bags.numel() and grad_bags.stride(-1) != 1:
+        grad_bags = grad_bags.contiguous()
+    return _bag.embed_bag_backward(grad_bags, indices.to(torch.int32)
+                                   .contiguous(), V, weights,
+                                   use_kernel=use_kernel)

@@ -1,1 +1,2 @@
-"""Models served by the port (so far DLRM of ``models.recsys``)."""
+"""Models of the port: the recsys family (``models.recsys``: DLRM, DIN,
+SASRec, MIND), served and trained."""

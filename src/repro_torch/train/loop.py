@@ -1,0 +1,105 @@
+"""The generic train step, as ``repro.train.loop``: gradients (with
+microbatch accumulation in f32), global-norm clipping and AdamW.
+
+``params`` is a model with ``leaves()`` (the recsys models of
+``repro_torch.models.recsys``): the dict of its tensors keyed by the
+reference's leaf paths that the optimiser and the train-state checkpoints
+(``repro_torch.convert.train_state_to_numpy``) read.  Gradients come from
+``loss.backward()`` into each parameter's ``.grad``; the step updates the
+parameters and the moments in place and frees the gradients.
+
+Cross-worker gradient compression (``compress_axis``) needs a collective
+and waits for the mesh slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.optim import adamw
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.OptState
+    ef_residual: Any = None    # error-feedback state (grad compression)
+
+
+def init_state(params, use_compression: bool = False) -> TrainState:
+    leaves = params.leaves()
+    res = ({k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for k, p in leaves.items()} if use_compression else None)
+    return TrainState(params=params, opt=adamw.init(leaves), ef_residual=res)
+
+
+def split_batch(batch, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of a batch (a tensor, or a tuple or
+    NamedTuple of them): rows [i·B/n, (i+1)·B/n) of each."""
+    if isinstance(batch, torch.Tensor):
+        return batch.reshape((n, batch.shape[0] // n)
+                             + tuple(batch.shape[1:]))[i]
+    parts = [split_batch(v, n, i) for v in batch]
+    return type(batch)(*parts) if hasattr(batch, "_fields") else tuple(parts)
+
+
+def make_train_step(
+    loss_fn: Callable,                 # (params, batch) -> (loss, metrics)
+    opt_cfg: adamw.AdamWConfig,
+    *,
+    microbatches: int = 1,
+    compress_axis: Optional[str] = None,
+):
+    """Build ``train_step(state, batch) -> (state, metrics)``; metrics are
+    ``loss_fn``'s (with one microbatch), ``loss``, ``grad_norm`` and
+    ``lr``, 0-d tensors.  With ``microbatches`` > 1 the batch is split
+    along its first axis, the f32 gradients are summed over the
+    microbatches in order and divided by their count, as the reference's
+    ``lax.scan`` does, and so is the loss."""
+    if compress_axis is not None:
+        raise NotImplementedError(
+            "gradient compression across workers (compress_axis) is not "
+            "ported yet (ROADMAP.md, Queue 1 item 12: the mesh tooling)")
+
+    def grads_of(params, batch):
+        for t in params.parameters():
+            t.grad = None
+        loss, metrics = loss_fn(params, batch)
+        loss.backward()
+        return loss.detach(), metrics, params.leaves(grad=True)
+
+    def accumulate(params, batch):
+        if microbatches == 1:
+            return grads_of(params, batch)
+        acc, loss_acc = None, None
+        for i in range(microbatches):
+            loss, _, grads = grads_of(params,
+                                      split_batch(batch, microbatches, i))
+            if acc is None:
+                acc = {k: torch.zeros(g.shape, dtype=torch.float32,
+                                      device=g.device)
+                       for k, g in grads.items()}
+                loss_acc = torch.zeros((), dtype=torch.float32,
+                                       device=loss.device)
+            for k, g in grads.items():
+                acc[k].add_(g)
+            loss_acc = loss_acc + loss
+        n = torch.tensor(float(microbatches), device=loss_acc.device)
+        for g in acc.values():
+            g.div_(n)
+        return loss_acc / n, {}, acc
+
+    def train_step(state: TrainState, batch):
+        loss, metrics, grads = accumulate(state.params, batch)
+        _, opt, opt_metrics = adamw.update(
+            grads, state.opt, state.params.leaves(), opt_cfg)
+        del grads
+        for t in state.params.parameters():
+            t.grad = None
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return TrainState(state.params, opt, state.ef_residual), metrics
+
+    return train_step

@@ -2,8 +2,11 @@
 
 Each CUDA kernel of ``repro_torch`` (A: ``sinnamon_score_topk``, B:
 ``csr_score`` and its rerank form ``csr_rerank_topk``, C: ``sinnamon_score``,
-D: ``embed_bag``) is run at small shapes on CUDA
-tensors and held against its plain-torch twin on the same tensors; the
+D: ``embed_bag`` and its backward ``embed_bag_backward``) is run at
+small shapes on CUDA tensors and held against its plain-torch twin on the
+same tensors (the backward: bit-equal to its twin on the host copy and to
+a second launch); a DLRM train step through D and its backward is held
+to the twin path's, and DIN, SASRec and MIND on the card to the CPU; the
 paths around them (the rows rerank, the front door, the tiered index, the
 sharded index and its tiered and durable forms) are held to their twin
 paths or resident forms on the card.  The tests skip
@@ -1008,3 +1011,204 @@ def test_sharded_durable_recovers_on_card(cuda, tmp_path):
     for g, w in zip(rec.search_many(qi, qv, 10, kprime=200),
                     live.search_many(qi, qv, 10, kprime=200)):
         np.testing.assert_array_equal(g, w)
+
+
+# -- kernel D's backward: embed_bag_backward ----------------------------------
+
+def _assert_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32))
+
+
+def _backward_case(rng, cuda, B, F, V, D, hot, weighted=False, hot_row=None,
+                   stacked=True):
+    """(grad_bags as a view of rows 1.. of a [B, F+1, D] buffer (stacked)
+    or [B, D], int32 indices with 20% pads, weights or None); ``hot_row``
+    names one row from half the slots."""
+    shape = (B, F, hot) if stacked else (B, hot)
+    idx = rng.integers(0, V, shape).astype(np.int32)
+    if hot_row is not None:
+        idx[rng.random(shape) < 0.5] = hot_row
+    idx[rng.random(shape) < 0.2] = -1
+    w = rng.normal(0, 1, shape).astype(np.float32) if weighted else None
+    if stacked:
+        buf = torch.from_numpy(rng.normal(0, 1, (B, F + 1, D)).astype(
+            np.float32)).to(cuda)
+        grad = buf[:, 1:]
+    else:
+        grad = torch.from_numpy(rng.normal(0, 1, (B, D)).astype(
+            np.float32)).to(cuda)
+    return (grad, torch.from_numpy(idx).to(cuda),
+            None if w is None else torch.from_numpy(w).to(cuda))
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("D", [64, 18, 8])
+@pytest.mark.parametrize("hot", [1, 4])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embed_bag_backward_bit_equal_to_twin(cuda, stacked, D, hot,
+                                              weighted):
+    """The backward kernel against its twin (``index_add_`` in slot order
+    on the CPU): bit-equal, 20% pads, a strided grad view (stacked: rows
+    1.. of a [B, F+1, D] buffer), a row named by half the slots, every
+    untouched row 0; two launches give the same bits, one launch a
+    call."""
+    rng = np.random.default_rng(D * 10 + hot + 100 * weighted)
+    F = 5 if stacked else 1
+    grad, idx, w = _backward_case(rng, cuda, 700, F, 3_000, D, hot,
+                                  weighted, hot_row=17, stacked=stacked)
+    assert not grad.is_contiguous() or not stacked
+    before = embed_bag.embed_bag_backward.launches
+    got = embed_bag.embed_bag_backward(grad, idx, 3_000, w)
+    again = embed_bag.embed_bag_backward(grad, idx, 3_000, w)
+    assert embed_bag.embed_bag_backward.launches == before + 2
+    want = embed_bag.embed_bag_backward_plain(
+        grad.cpu(), idx.cpu(), 3_000, None if w is None else w.cpu())
+    torch.cuda.synchronize()
+    _assert_bits(got.cpu(), want)
+    _assert_bits(again, got)
+    assert got.shape == ((F, 3_000, D) if stacked else (3_000, D))
+
+
+@pytest.mark.parametrize("B,V", [(1, 50_000), (3, 7), (64, 100_000),
+                                 (4_096, 64)])
+def test_embed_bag_backward_gaps_and_runs(cuda, B, V):
+    """Rows no slot names are written as zeros by the warps whose heads
+    follow them: long gaps (B=1 over 26 x 50,000 rows), a batch whose
+    every row is named many times (V=7), all pads, no pads."""
+    rng = np.random.default_rng(B + V)
+    for pad_all in (False, True):
+        grad, idx, _ = _backward_case(rng, cuda, B, 26, V, 64, 1)
+        if pad_all:
+            idx = torch.full_like(idx, -1)
+        got = embed_bag.embed_bag_backward(grad, idx, V)
+        want = embed_bag.embed_bag_backward_plain(grad.cpu(), idx.cpu(), V)
+        torch.cuda.synchronize()
+        _assert_bits(got.cpu(), want)
+    idx = torch.from_numpy(rng.integers(0, V, (B, 26, 1)).astype(
+        np.int32)).to(cuda)
+    got = embed_bag.embed_bag_backward(grad, idx, V)
+    want = embed_bag.embed_bag_backward_plain(grad.cpu(), idx.cpu(), V)
+    torch.cuda.synchronize()
+    _assert_bits(got.cpu(), want)
+
+
+def test_embed_bag_backward_rejects_bad_operands(cuda):
+    grad = torch.zeros((4, 3, 8), device=cuda)
+    idx = torch.zeros((4, 3, 2), dtype=torch.int32, device=cuda)
+    for args in ((grad, idx.long(), 10),                 # int64 indices
+                 (grad[:, :2], idx, 10),                  # fields differ
+                 (grad, idx.cpu(), 10),                   # mixed devices
+                 (grad[..., ::2], idx, 10),               # column stride
+                 (grad.double(), idx, 10),                # f64 gradient
+                 (grad, idx, 2**30)):                     # rows past int32
+        with pytest.raises(ValueError):
+            embed_bag.embed_bag_backward(*args)
+
+
+def test_ops_embed_bag_autograd_on_card(cuda):
+    """ops.embed_bag on a table that takes a gradient: the forward kernel
+    and the backward kernel once each, the table's gradient bit-equal to
+    the twins' (CPU autograd through the same Function)."""
+    rng = np.random.default_rng(11)
+    table, idx, w = _bag_operands(rng, 900, 64, 2_000, 6, torch.float32,
+                                  cuda)
+    upstream = torch.from_numpy(rng.normal(0, 1, (2_000, 64)).astype(
+        np.float32))
+    got_t = table.clone().requires_grad_(True)
+    f0 = embed_bag.embed_bag.launches
+    b0 = embed_bag.embed_bag_backward.launches
+    (ops.embed_bag(got_t, idx, w) * upstream.to(cuda)).sum().backward()
+    assert embed_bag.embed_bag.launches == f0 + 1
+    assert embed_bag.embed_bag_backward.launches == b0 + 1
+    want_t = table.cpu().clone().requires_grad_(True)
+    (ops.embed_bag(want_t, idx.cpu(), w.cpu()) * upstream).sum().backward()
+    torch.cuda.synchronize()
+    _assert_bits(got_t.grad.cpu(), want_t.grad)
+
+
+def test_dlrm_train_step_on_card_matches_twin_path(cuda):
+    """One train step of DLRM (smoke width, 4 lookups a field) through
+    kernel D and its backward kernel against the same step through the
+    twins, from the same state: the loss within rtol 1e-5, the table
+    gradients within rtol = 1e-5, atol = 1e-6 and every updated parameter
+    within rtol = atol = 1e-5 (on the card the twin's ``index_add_`` adds
+    with atomics, in another order)."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.data import loaders
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    cfg = dataclasses.replace(dlrm_rm2.smoke_config(), multi_hot=4)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    base = recsys.DLRM(cfg, gen, device=cuda)
+    tree = convert.recsys_params_to_numpy(base)
+    batch = loaders.recsys_batch(0, 2, 512, cfg)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, decay_steps=20)
+    out = {}
+    for use_kernel in (None, False):
+        model = convert.recsys_params_from_numpy(tree, cfg, device=cuda)
+        step = loop.make_train_step(
+            lambda p, b, u=use_kernel: (recsys.loss(p, b, cfg,
+                                                    use_kernel=u), {}),
+            opt_cfg)
+        reset_launch_counts()
+        recsys.loss(model, batch, cfg, use_kernel=use_kernel).backward()
+        out[use_kernel, "grad"] = model.tables.grad.clone()
+        counts = launch_counts()
+        state, metrics = step(loop.init_state(model), batch)
+        out[use_kernel] = (float(metrics["loss"]),
+                           {k: t.detach().clone() for k, t in
+                            state.params.leaves().items()}, counts)
+    (lk, pk, ck), (lt, pt, ct) = out[None], out[False]
+    assert ck["embed_bag"] == 1 and ck["embed_bag_backward"] == 1
+    assert ct["embed_bag"] == 0 and ct["embed_bag_backward"] == 0
+    np.testing.assert_allclose(lk, lt, rtol=1e-5)
+    torch.testing.assert_close(out[None, "grad"], out[False, "grad"],
+                               rtol=1e-5, atol=1e-6)
+    for k in pk:
+        torch.testing.assert_close(pk[k], pt[k], rtol=1e-5, atol=1e-5,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("arch", ["din", "sasrec", "mind"])
+def test_seq_models_on_card_match_cpu(cuda, arch):
+    """DIN, SASRec and MIND at full width (1,000 items) on the card against
+    the same parameters and batch on the CPU: serving outputs within
+    rtol = atol = 1e-5, the loss within rtol 1e-5 and every gradient
+    within rtol = 1e-4, atol = 1e-6 (cuBLAS sums in another order)."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.data import loaders
+    from repro_torch.models import recsys
+    cfg = dataclasses.replace(registry.get(arch).full_config(),
+                              n_items=1000)
+    tree = convert.recsys_params_to_numpy(
+        recsys.init_params(torch.Generator().manual_seed(2), cfg,
+                           device="cpu"))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = convert.recsys_params_from_numpy(tree, cfg, device=dev)
+        batch = loaders.recsys_batch(0, 3, 64, cfg, device=dev)
+        loss = recsys.loss(model, batch, cfg)
+        loss.backward()
+        out[str(dev)] = (
+            {fn: getattr(recsys, fn)(model, batch, cfg).cpu()
+             for fn in ("score", "user_repr", "retrieval_scores")},
+            loss.detach().cpu(),
+            {k: g.cpu() for k, g in model.leaves(grad=True).items()})
+    (sc, lc, gc_), (sg, lg, gg) = out["cpu"], out[str(cuda)]
+    for fn in sc:
+        torch.testing.assert_close(sg[fn], sc[fn], rtol=1e-5, atol=1e-5,
+                                   msg=fn)
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=0)
+    for k in gc_:
+        torch.testing.assert_close(gg[k], gc_[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)

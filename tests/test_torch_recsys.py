@@ -19,6 +19,9 @@
 * DLRM ``score`` / ``loss`` / ``user_repr`` / ``item_embeddings`` /
   ``retrieval_scores`` from the same parameters: rtol = atol = 1e-5 (f32
   matrix products sum in another order); top-10 retrieval ids equal.
+* The recsys entry points: a model and a config of different models
+  raise ``ValueError``; the parameters take gradients, the serving
+  entry points record none.
 * The model's users served through the port's ``SinnamonIndex`` over the
   sparsified item catalog: ids equal to the JAX index's.
 
@@ -214,11 +217,12 @@ def test_dlrm_kernel_program_matches_twin_program_and_reference(hot):
         jax.tree.map(np.asarray, params), cfg_t, device="cpu")
     tb = tloaders.recsys_batch(1, 2, 24, cfg_t, device="cpu")
     jb = jax.tree.map(jnp.asarray, jloaders.recsys_batch(1, 2, 24, cfg_j))
-    vecs = model.interaction_input(tb.dense, tb.sparse)
-    old = model.interaction_input(tb.dense, tb.sparse, use_kernel=False)
+    with torch.no_grad():               # the serving program
+        vecs = model.interaction_input(tb.dense, tb.sparse)
+        old = model.interaction_input(tb.dense, tb.sparse, use_kernel=False)
+        x0, emb = model.features(tb.dense, tb.sparse)
     assert vecs.shape == (24, cfg_t.n_sparse + 1, cfg_t.embed_dim)
     assert torch.equal(vecs.view(torch.int32), old.view(torch.int32))
-    x0, emb = model.features(tb.dense, tb.sparse)
     assert emb.data_ptr() == x0.data_ptr() + cfg_t.embed_dim * 4
     assert torch.equal(trs.score(model, tb, cfg_t).view(torch.int32),
                        trs.score(model, tb, cfg_t,
@@ -410,7 +414,7 @@ def _pair(name):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_dlrm_matches_reference(name):
     cfg_t, cfg_j, model, params, tb, jb = _pair(name)
-    np.testing.assert_array_equal(model.tables.numpy(),
+    np.testing.assert_array_equal(model.tables.detach().numpy(),
                                   np.asarray(params["tables"]))
     close = dict(rtol=1e-5, atol=1e-5)
     for fn in ("score", "loss", "user_repr", "retrieval_scores"):
@@ -418,8 +422,8 @@ def test_dlrm_matches_reference(name):
         want = getattr(jrs, fn)(params, jb, cfg_j)
         assert tuple(got.shape) == tuple(want.shape), fn
         assert torch.isfinite(got).all(), fn
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **close,
-                                   err_msg=fn)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **close, err_msg=fn)
     np.testing.assert_array_equal(trs.item_embeddings(model, cfg_t).numpy(),
                                   np.asarray(jrs.item_embeddings(params,
                                                                  cfg_j)))
@@ -444,7 +448,7 @@ def test_init_params_law_and_dtype(dtype):
         w = lin.weight.to(torch.float32)
         assert abs(float(w.std()) * np.sqrt(w.shape[1]) - 1) < 0.1
         assert not lin.bias.any()
-    assert not any(p.requires_grad for p in model.parameters())
+    assert all(p.requires_grad for p in model.parameters())
     logits = trs.score(model, tloaders.recsys_batch(0, 1, 8, cfg,
                                                     device="cpu"), cfg)
     assert logits.shape == (8,) and torch.isfinite(logits).all()
@@ -500,7 +504,39 @@ def test_dispatch_rules(rng):
     assert tkernels.launch_counts()["embed_bag"] == 0
     din = dataclasses.replace(cfg, model="din")
     for fn in (trs.score, trs.user_repr):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+        with pytest.raises(ValueError, match="'dlrm' model cannot run"):
             fn(model, None, din)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         trs.DLRM(din, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_dlrm_gradients_match_jax_grad(name):
+    """The DLRM loss's gradient through kernel D's twins (forward and
+    backward) against ``jax.grad`` of the reference's loss: rtol = 1e-4,
+    atol = 1e-6 (sums in another order; atol for entries near 0)."""
+    cfg_t, cfg_j, model, params, tb, jb = _pair(name)
+    want = convert.flatten_tree(jax.tree.map(
+        np.asarray, jax.grad(lambda p: jrs.loss(p, jb, cfg_j))(params)))
+    trs.loss(model, tb, cfg_t).backward()
+    got = model.leaves(grad=True)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_dlrm_serving_path_unchanged_under_no_grad():
+    """Without gradients DLRM serves through the one-buffer form (x0
+    written by the last ReLU, no autograd node); with them the buffer is
+    ``InteractionInput``'s; both hold the same bits."""
+    cfg = tdlrm.smoke_config()
+    model = trs.DLRM(cfg, device="cpu")
+    b = tloaders.recsys_batch(0, 2, 16, cfg, device="cpu")
+    with torch.no_grad():
+        served = model.interaction_input(b.dense, b.sparse)
+    trained = model.interaction_input(b.dense, b.sparse)
+    assert served.grad_fn is None
+    assert type(trained.grad_fn).__name__ == "InteractionInputBackward"
+    assert torch.equal(served.view(torch.int32),
+                       trained.detach().view(torch.int32))
