@@ -132,9 +132,12 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               (``embed_bag_backward`` on rows 1.. of the [B, 27, 64]
               buffer's gradient) bit-equal to its twin on the host copy
               and to a second launch, with its time, the sort's, the
-              twin's on the card, ``index_add_`` into zeros and the byte
-              bound; a twin-path step (``use_kernel=False``) against the
-              kernel path's first step from the same drawn state (loss
+              kernel's alone on prepared operands (and with every slot a
+              pad: the writes alone), ``torch.zeros`` of the output (the
+              card's write rate for it), the twin's on the card,
+              ``index_add_`` into zeros, the byte bound and the kernel's
+              share of it; a twin-path step (``use_kernel=False``) against
+              the kernel path's first step from the same drawn state (loss
               within rtol 1e-5, parameters within rtol 1e-5 / atol 1e-6);
               ``train.loop.make_train_step`` with the launcher's AdamW for
               one warm-up and 8 timed steps (wall p50 / max, samples/s,
@@ -2491,19 +2494,35 @@ def step_split(model, state, hb, cfg, opt_cfg, dev) -> dict:
 
 def backward_times(grad, sparse, V: int, card: str) -> dict:
     """Kernel D's backward at the train batch: CUDA events of the wrapper
-    (operand sort + kernel), of the sort alone, of the twin on the card
-    (``index_add_`` with atomics) and of ``index_add_`` into a zeroed
-    [F·V, D] buffer over the same flat rows (the library yardstick; its
-    rows and sources prepared outside the clock), and the byte bound."""
+    (operand sort + kernel), of the sort alone, of the kernel alone on
+    prepared operands (``kernel_ms``; ``pads_only_ms`` with every slot a
+    pad: the spans' writes without the runs), of ``torch.zeros`` of the
+    [F·V, D] output (``memset_ms``: the card's write rate for this
+    buffer), of the twin on the card (``index_add_`` with atomics) and of
+    ``index_add_`` into a zeroed buffer over the same flat rows (the
+    library yardstick; its rows and sources prepared outside the clock),
+    and the byte bound with the kernel's share of it."""
     import torch
 
     from repro_torch.kernels import embed_bag
     B, F, D = grad.shape
+    hot = sparse.shape[-1]
     ms = cuda_ms(lambda: embed_bag.embed_bag_backward(grad, sparse, V), 5)
     prep_ms = cuda_ms(lambda: embed_bag.backward_operands(sparse, V), 5)
+    keys, slots = embed_bag.backward_operands(sparse, V)
+    kernel_ms = cuda_ms(lambda: embed_bag.backward_kernel(
+        grad, keys, slots, hot, V), 5)
+    # the same launch with every slot a pad: the spans' zeros, the pre-pass
+    # and the heads scan, no run; the rest of kernel_ms is the runs' work
+    pads = torch.full_like(keys, F * V)
+    order = torch.arange(keys.numel(), device=keys.device)
+    pads_ms = cuda_ms(lambda: embed_bag.backward_kernel(
+        grad, pads, order, hot, V), 5)
+    del keys, slots, pads, order
+    memset_ms = cuda_ms(lambda: torch.zeros((F * V, D), device=grad.device),
+                        5)
     plain_ms = cuda_ms(lambda: embed_bag.embed_bag_backward_plain(
         grad, sparse, V), 3)
-    hot = sparse.shape[-1]
     offs = torch.arange(F, device=sparse.device)[None, :, None] * V
     rows = torch.where(sparse >= 0, sparse.long() + offs, -1).reshape(-1)
     keep = rows >= 0
@@ -2518,19 +2537,25 @@ def backward_times(grad, sparse, V: int, card: str) -> dict:
     bound = max(nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S) * 1e3
     del rows, keep, rows_v, src
     log(f"[10a train] embed_bag_backward: {ms:.4f} ms a call (operand sort "
-        f"{prep_ms:.4f} ms of it), twin on the card {plain_ms:.4f} ms, "
-        f"index_add_ into zeros {lib_ms:.4f} ms; bound {bound:.4f} ms "
-        f"(bytes: {nbytes} B = the dense f32 gradient written once, "
-        f"{bags_read} bag gradient rows with a valid slot, the indices; "
-        f"{n_valid} valid slots) ({card})")
+        f"{prep_ms:.4f} ms of it); kernel alone {kernel_ms:.4f} ms (every "
+        f"slot a pad {pads_ms:.4f}), bound / kernel {bound / kernel_ms:.1%}; "
+        f"torch.zeros of the output "
+        f"{memset_ms:.4f} ms; twin "
+        f"on the card {plain_ms:.4f} ms, index_add_ into zeros "
+        f"{lib_ms:.4f} ms; bound {bound:.4f} ms (bytes: {nbytes} B = the "
+        f"dense f32 gradient written once, {bags_read} bag gradient rows "
+        f"with a valid slot, the indices; {n_valid} valid slots) ({card})")
     return {"name": "embed_bag_backward", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/embed_bag_backward.cu",
             "replaces": "src/repro/kernels/embed_bag.py:60",
             "replaces_note": "the gradient of kernel D; the TPU kernel has "
                              "none (the reference differentiates its jnp "
                              "gather, src/repro/models/recsys.py:105-113)",
-            "ms": ms, "prep_ms": prep_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "ms": ms, "prep_ms": prep_ms, "kernel_ms": kernel_ms,
+            "pads_only_ms": pads_ms,
+            "memset_ms": memset_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "bound_share": bound / kernel_ms, "library_ms": lib_ms,
             "library": "torch.zeros + Tensor.index_add_ over the flat rows",
             "bound_bytes": nbytes, "valid_slots": n_valid,
             "shape": [B, F, D, hot, V]}

@@ -29,9 +29,12 @@ slot, pads skipped), so they agree bit for bit.
 The gradient with respect to the table is a second kernel,
 ``csrc/embed_bag_backward.cu`` (:func:`embed_bag_backward`; the TPU kernel
 has none: the reference differentiates its jnp gather).  Its operand prep
-sorts the (row, slot) pairs stably by row; the kernel sums each row's bag
-gradients in slot order and writes every row of the dense [F, V, D] (or
-[V, D]) gradient once, so two launches give the same bits and the plain
+sorts the (row, slot) pairs stably by row (:func:`backward_operands`);
+the kernel (:func:`backward_kernel`, planned by :func:`backward_plan`)
+gives each block spans of output rows, streams a span's zeros out and
+stores each named row's bag gradients, summed in slot order, over its
+zeros, so every row of the dense [F, V, D] (or [V, D]) gradient has one
+writer, two launches give the same bits and the plain
 twin :func:`embed_bag_backward_plain` (``index_add_`` in slot order) the
 same bits too.  :class:`EmbedBag` puts the forward and the backward
 together under autograd; the weights take no gradient.
@@ -367,11 +370,50 @@ def check_backward_operands(grad_bags: Tensor, indices: Tensor, V: int,
                          f"row keys)")
 
 
+#: f32 a span holds (16 KB): R = max(1, SPAN_FLOATS // D) output rows.
+SPAN_FLOATS = 4096
+
+
+class BackwardPlan(NamedTuple):
+    """The launch of the backward kernel, from shapes and alignment."""
+    n: int               # slots: B·F·hot
+    rows: int            # output rows: F·V
+    span_rows: int       # R: output rows a block owns at a time
+    n_spans: int         # ceil(rows / R)
+    group: int           # lanes a run: D / 4 (16-byte loads) or D, at
+                         # most 32, rounded up to a power of two
+    vec4: int            # 16-byte gradient loads
+    wide: int            # 16-byte stores to the output
+    smem_bytes: int      # R run heads of 8 B
+
+
+def backward_plan(B: int, F: int, hot: int, V: int, D: int, *,
+                  grad_aligned: bool = True,
+                  out_aligned: bool = True) -> BackwardPlan:
+    """The :class:`BackwardPlan` for ``grad_bags`` [B, F, D] (F = 1: flat)
+    and ``hot`` slots a bag over V rows a field.  ``grad_aligned``: the
+    gradient's base and strides are 16-byte aligned; ``out_aligned``: the
+    output is.  Raises ValueError where the kernel's 32-bit positions and
+    rows do not reach: B·F·hot or F·V >= 2**31."""
+    n, rows = B * F * hot, F * V
+    if n >= 2**31 or rows >= 2**31 or min(B, F, hot, V) < 0 or D < 1:
+        raise ValueError(f"{B}×{F}×{hot} slots over {F}×{V} rows of "
+                         f"{D}: want B·F·hot and F·V below 2**31 (int32 "
+                         f"positions and rows), D >= 1")
+    R = max(1, SPAN_FLOATS // D)
+    vec4 = int(D % 4 == 0 and grad_aligned)
+    lanes = D // 4 if vec4 else D
+    group = min(32, 1 << (lanes - 1).bit_length())
+    return BackwardPlan(n, rows, R, -(-rows // R), group, vec4,
+                        int(D % 4 == 0 and out_aligned), R * 8)
+
+
 class _BackwardLaunch(ctypes.Structure):
     """``struct BackwardLaunch`` of ``csrc/embed_bag_backward.cu``."""
-    _fields_ = [(n, ctypes.c_longlong) for n in (
-        "n", "rows", "g_bstride", "g_fstride")] + [
-        (n, ctypes.c_int) for n in ("D", "F", "hot", "vec4", "sms", "pad")]
+    _fields_ = [(n, ctypes.c_longlong) for n in ("g_bstride", "g_fstride")] \
+        + [(n, ctypes.c_int) for n in (
+            "n", "rows", "D", "F", "hot", "span_rows", "group", "vec4",
+            "wide", "sms")]
 
 
 def _backward_launcher():
@@ -379,10 +421,51 @@ def _backward_launcher():
     fn = _FNS.get(lib._name)
     if fn is None:
         fn = ctypes.PyDLL(lib._name).embed_bag_backward_launch
-        fn.argtypes = [ctypes.c_void_p] * 7
+        fn.argtypes = [ctypes.c_void_p] * 8
         fn.restype = ctypes.c_int
         _FNS[lib._name] = fn
     return fn
+
+
+def backward_kernel(grad_bags: Tensor, keys: Tensor, slots: Tensor,
+                    hot: int, V: int,
+                    weights: Optional[Tensor] = None) -> Tensor:
+    """One launch of the backward kernel on prepared operands: ``keys`` and
+    ``slots`` from :func:`backward_operands` of the int32 indices with
+    ``hot`` slots a bag, ``grad_bags`` and ``weights`` as
+    :func:`embed_bag_backward` takes them (checked there).  Returns f32
+    [F, V, D] (stacked) or [V, D] (flat)."""
+    stacked = grad_bags.dim() == 3
+    B, D = grad_bags.shape[0], grad_bags.shape[-1]
+    F = grad_bags.shape[1] if stacked else 1
+    dev = grad_bags.device
+    if keys.dtype != torch.int32 or slots.dtype != torch.int64 \
+            or keys.shape != (B * F * hot,) or slots.shape != keys.shape \
+            or keys.device != dev or slots.device != dev \
+            or not (keys.is_contiguous() and slots.is_contiguous()):
+        raise ValueError(f"keys / slots: want contiguous int32 / int64 "
+                         f"[{B * F * hot}] on {dev}")
+    fn = _backward_launcher()
+    out = torch.empty((F * V, D), dtype=torch.float32, device=dev)
+    if out.numel():
+        s_b = grad_bags.stride(0)
+        s_f = grad_bags.stride(1) if stacked else 0
+        p = backward_plan(
+            B, F, hot, V, D,
+            grad_aligned=(grad_bags.data_ptr() % 16 == 0 and s_b % 4 == 0
+                          and s_f % 4 == 0),
+            out_aligned=out.data_ptr() % 16 == 0)
+        st = _BackwardLaunch(s_b, s_f, p.n, p.rows, D, F, hot, p.span_rows,
+                             p.group, p.vec4, p.wide, _build.sm_count(dev))
+        starts = torch.empty(p.n_spans + 1, dtype=torch.int32, device=dev)
+        err = fn(ctypes.addressof(st), grad_bags.data_ptr(),
+                 keys.data_ptr(), slots.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 starts.data_ptr(), out.data_ptr(),
+                 torch._C._cuda_getCurrentRawStream(dev.index))
+        _build.check(err, "embed_bag_backward")
+        embed_bag_backward.launches += 1
+    return out.view(F, V, D) if stacked else out
 
 
 def embed_bag_backward(grad_bags: Tensor, indices: Tensor, V: int,
@@ -396,8 +479,9 @@ def embed_bag_backward(grad_bags: Tensor, indices: Tensor, V: int,
     rows no slot names are 0.
 
     ``use_kernel`` None launches the CUDA kernel for CUDA tensors (after
-    :func:`backward_operands`) and runs :func:`embed_bag_backward_plain`
-    for CPU tensors; False forces the twin; True on CPU tensors raises.
+    :func:`backward_operands`, through :func:`backward_kernel`) and runs
+    :func:`embed_bag_backward_plain` for CPU tensors; False forces the
+    twin; True on CPU tensors raises.
     """
     check_backward_operands(grad_bags, indices, V, weights)
     if use_kernel is None:
@@ -406,27 +490,9 @@ def embed_bag_backward(grad_bags: Tensor, indices: Tensor, V: int,
         return embed_bag_backward_plain(grad_bags, indices, V, weights)
     if not grad_bags.is_cuda:
         raise ValueError("the CUDA kernel needs CUDA tensors")
-    stacked = indices.dim() == 3
-    F = indices.shape[1] if stacked else 1
-    D = grad_bags.shape[-1]
-    fn = _backward_launcher()
     keys, slots = backward_operands(indices, V)
-    out = torch.empty((F * V, D), dtype=torch.float32,
-                      device=grad_bags.device)
-    if out.numel():
-        st = _BackwardLaunch(
-            keys.numel(), F * V, grad_bags.stride(0),
-            grad_bags.stride(1) if stacked else 0, D, F, indices.shape[-1],
-            int(D % 4 == 0 and out.data_ptr() % 16 == 0),
-            _build.sm_count(grad_bags.device), 0)
-        err = fn(ctypes.addressof(st), grad_bags.data_ptr(),
-                 keys.data_ptr(), slots.data_ptr(),
-                 None if weights is None else weights.data_ptr(),
-                 out.data_ptr(),
-                 torch._C._cuda_getCurrentRawStream(grad_bags.device.index))
-        _build.check(err, "embed_bag_backward")
-        embed_bag_backward.launches += 1
-    return out.view(F, V, D) if stacked else out
+    return backward_kernel(grad_bags, keys, slots, indices.shape[-1], V,
+                           weights)
 
 
 embed_bag_backward.launches = 0

@@ -1107,6 +1107,104 @@ def test_embed_bag_backward_rejects_bad_operands(cuda):
             embed_bag.embed_bag_backward(*args)
 
 
+def _check_backward(grad, idx, V, w=None):
+    """The wrapper once and the kernel on prepared operands once (each a
+    launch), both bit-equal to the twin on the host copy."""
+    before = embed_bag.embed_bag_backward.launches
+    got = embed_bag.embed_bag_backward(grad, idx, V, w)
+    keys, slots = embed_bag.backward_operands(idx, V)
+    again = embed_bag.backward_kernel(grad, keys, slots, idx.shape[-1], V, w)
+    assert embed_bag.embed_bag_backward.launches == before + 2
+    want = embed_bag.embed_bag_backward_plain(
+        grad.cpu(), idx.cpu(), V, None if w is None else w.cpu())
+    torch.cuda.synchronize()
+    _assert_bits(got.cpu(), want)
+    _assert_bits(again, got)
+
+
+def _span_rows(F, V, D):
+    return embed_bag.backward_plan(1, F, 1, V, D).span_rows
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("D", [64, 18])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embed_bag_backward_runs_on_span_edges(cuda, stacked, D, weighted):
+    """Runs of several slots on a span's first and last rows (rows R - 1,
+    R, 2R - 1, 2R, ...), row 0 and row F·V - 1 named, F·V not a multiple
+    of the span's R rows; the flat form with weights among them."""
+    rng = np.random.default_rng(D + 2 * stacked + weighted)
+    F = 3 if stacked else 1
+    R = _span_rows(F, 1, D)
+    V = 2 * R + 37 if stacked else 5 * R + 3
+    rows = F * V
+    assert rows % R
+    grad, idx, w = _backward_case(rng, cuda, 300, F, V, D, 2, weighted,
+                                  stacked=stacked)
+    edges = sorted({0, rows - 1} | {e for k in range(1, rows // R + 1)
+                                    for e in (k * R - 1, k * R)
+                                    if e < rows})
+    host = idx.cpu().numpy().reshape(300, F, 2)
+    for g in edges:
+        f, v = divmod(g, V)
+        bags = rng.choice(300, 4, replace=False)
+        host[bags, f, rng.integers(0, 2, 4)] = v
+    idx = torch.from_numpy(host.reshape(idx.shape).copy()).to(cuda)
+    _check_backward(grad, idx, V, w)
+
+
+@pytest.mark.parametrize("V", [7, 129, 1_000])
+def test_embed_bag_backward_tables_smaller_than_a_span_or_ragged(cuda, V):
+    """F·V below one span (V = 7: one block, one span), just past one
+    (F = 1, V = 129), and not a multiple of R; stacked and flat."""
+    rng = np.random.default_rng(V)
+    for stacked, F in ((True, 26), (False, 1)):
+        grad, idx, w = _backward_case(rng, cuda, 50, F, V, 64, 2, True,
+                                      stacked=stacked)
+        _check_backward(grad, idx, V, w)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_embed_bag_backward_one_run_of_every_slot(cuda, stacked):
+    """Every slot names one row: a single run of n = 3,000 slots, longer
+    than a block's scan of 256 positions and than a group's 16 lanes."""
+    rng = np.random.default_rng(31 + stacked)
+    shape = (1_000, 1, 3) if stacked else (1_000, 3)
+    idx = torch.full(shape, 5, dtype=torch.int32, device=cuda)
+    grad, _, w = _backward_case(rng, cuda, 1_000, 1, 300, 64, 3, True,
+                                stacked=stacked)
+    _check_backward(grad, idx, 300, w)
+    _check_backward(grad, idx, 300)
+
+
+@pytest.mark.parametrize("D", [100, 260, 50])
+def test_embed_bag_backward_wide_rows(cuda, D):
+    """D = 100 (25 lanes of float4, not a power of two), D = 260 (a
+    column loop past 32 lanes x 4), D = 50 (4-byte accesses and a column
+    loop past 32 lanes), stacked with weights and flat without."""
+    rng = np.random.default_rng(D)
+    grad, idx, w = _backward_case(rng, cuda, 400, 4, 900, D, 3, True,
+                                  hot_row=11)
+    _check_backward(grad, idx, 900, w)
+    grad, idx, _ = _backward_case(rng, cuda, 400, 1, 900, D, 3,
+                                  stacked=False)
+    _check_backward(grad, idx, 900)
+
+
+def test_embed_bag_backward_unaligned_gradient(cuda):
+    """A gradient view one element off 16 bytes: 4-byte gradient loads
+    (64 columns a row in two passes of 32 lanes), 4-byte stores of the
+    sums over 16-byte stores of the zeros."""
+    rng = np.random.default_rng(17)
+    buf = torch.from_numpy(rng.normal(0, 1, (200, 4, 65)).astype(
+        np.float32)).to(cuda)
+    grad = buf[:, 1:, 1:]
+    assert grad.data_ptr() % 16
+    idx = torch.from_numpy(rng.integers(-1, 500, (200, 3, 2)).astype(
+        np.int32)).to(cuda)
+    _check_backward(grad, idx, 500)
+
+
 def test_ops_embed_bag_autograd_on_card(cuda):
     """ops.embed_bag on a table that takes a gradient: the forward kernel
     and the backward kernel once each, the table's gradient bit-equal to

@@ -23,6 +23,7 @@ the launcher.
   bitwise; the launcher resumes from its last checkpoint.
 """
 
+import ctypes
 import dataclasses
 
 import jax
@@ -119,6 +120,101 @@ def test_backward_wrapper_on_cpu_is_the_twin_and_counts_nothing():
                        150).reshape(-1)
     assert torch.equal(keys, torch.sort(flat, stable=True).values)
     assert torch.equal(flat[slots], keys)
+
+
+@pytest.mark.parametrize("F,V,D", [(26, 1_000_000, 64), (1, 7, 64),
+                                   (3, 300, 18), (4, 900, 100),
+                                   (2, 500, 260), (1, 129, 8),
+                                   (1, 3, 20_000)])
+def test_backward_plan_spans_cover_rows_and_fit_shared_memory(F, V, D):
+    """The plan's spans, dealt over a persistent grid as the kernel deals
+    them (block k takes spans k, k + g, k + 2g, ...), cover [0, F·V)
+    exactly once; a span is 16 KB of output or one row; its R run heads
+    fit a block's static shared memory; a group's lanes cover a row in
+    whole passes."""
+    p = tbag.backward_plan(65_536, F, 1, V, D)
+    for grid in (1, 7, 132 * 8):
+        g = min(grid, p.n_spans)
+        rows = np.zeros(F * V + 1, dtype=np.int64)
+        for k in range(g):
+            for s in range(k, p.n_spans, g):
+                rows[s * p.span_rows] += 1
+                rows[min((s + 1) * p.span_rows, F * V)] -= 1
+        assert (np.cumsum(rows)[:-1] == 1).all()
+    assert (p.n_spans - 1) * p.span_rows < F * V <= p.n_spans * p.span_rows
+    assert p.span_rows == max(1, tbag.SPAN_FLOATS // D)
+    assert p.smem_bytes == 8 * p.span_rows <= 48 * 1024
+    assert p.group in (1, 2, 4, 8, 16, 32)
+    lanes = D // 4 if p.vec4 else D
+    assert p.group >= min(lanes, 32) and (p.group == 32 or
+                                          p.group // 2 < lanes)
+    assert p.vec4 == p.wide == (D % 4 == 0)
+    if (F, V, D) == (26, 1_000_000, 64):
+        assert (p.span_rows, p.n_spans, p.group) == (64, 406_250, 16)
+
+
+@pytest.mark.parametrize("hot", [1, 3])
+def test_backward_span_walk_visits_every_run_once(hot):
+    """The kernel's walk in plain Python over sorted keys from
+    ``backward_operands``: span s's positions run from the first key >=
+    s·R to the first key >= (s+1)·R (the pre-pass's binary searches), so
+    the spans' positions partition the valid sorted positions and every
+    run (a head where the key changes) lies inside its span."""
+    rng = np.random.default_rng(40 + hot)
+    F, V, B = 3, 700, 500
+    idx = rng.integers(0, V, (B, F, hot)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.2] = -1
+    idx[:, 1, 0] = 323                 # row 1,023: a run of B slots on the
+                                       # last row of span 7
+    keys, _ = tbag.backward_operands(torch.from_numpy(idx), V)
+    keys = keys.numpy()
+    p = tbag.backward_plan(B, F, hot, V, 64)
+    starts = [int(np.searchsorted(keys, min(s * p.span_rows, F * V)))
+              for s in range(p.n_spans + 1)]
+    seen, runs = [], 0
+    for s in range(p.n_spans):
+        span = range(starts[s], starts[s + 1])
+        seen.extend(span)
+        for q in span:
+            assert s * p.span_rows <= keys[q] < (s + 1) * p.span_rows
+            runs += q == starts[s] or keys[q - 1] != keys[q]
+    n_valid = int((idx >= 0).sum())
+    assert seen == list(range(n_valid))
+    assert runs == len(np.unique(keys[:n_valid]))
+    assert (keys[n_valid:] == F * V).all() and starts[-1] == n_valid
+
+
+def test_backward_plan_raises_past_int32_positions():
+    """B·F·hot >= 2**31 slots (the kernel's positions and slot arithmetic
+    are 32-bit) and F·V >= 2**31 rows: each a ValueError from shapes
+    alone; alignment picks 4-byte loads and stores."""
+    tbag.backward_plan(2**31 // 26, 26, 1, 1_000_000, 64)
+    for args in ((2**31 // 26 + 1, 26, 1, 1_000_000, 64),
+                 (2**30, 1, 2, 10, 8),
+                 (4, 26, 1, 2**31 // 26 + 1, 64),
+                 (4, 1, 1, 10, 0)):
+        with pytest.raises(ValueError):
+            tbag.backward_plan(*args)
+    assert tbag.backward_plan(4, 1, 1, 10, 64, out_aligned=False).wide == 0
+    assert tbag.backward_plan(4, 1, 1, 10, 64, grad_aligned=False).vec4 == 0
+    wide_rows = tbag.backward_plan(4, 1, 1, 10, 100_000)
+    assert (wide_rows.span_rows, wide_rows.group) == (1, 32)
+
+
+def test_backward_launch_struct_matches_cuda_source():
+    """``_BackwardLaunch._fields_`` against ``struct BackwardLaunch`` of
+    ``csrc/embed_bag_backward.cu``: the same names and C types, in order."""
+    import re
+    src = (tkernels._build.CSRC / "embed_bag_backward.cu").read_text()
+    body = re.search(r"struct BackwardLaunch \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        m = re.match(r"\s*(long long|int)\s+([\w,\s]+);", line)
+        if m:
+            fields += [(n.strip(), m.group(1)) for n in m.group(2).split(",")]
+    ctype = {ctypes.c_longlong: "long long", ctypes.c_int: "int"}
+    assert fields == [(n, ctype[t]) for n, t in tbag._BackwardLaunch._fields_]
+    assert ctypes.sizeof(tbag._BackwardLaunch) == 8 * 2 + 4 * 10
 
 
 @pytest.mark.parametrize("weighted", [False, True])
