@@ -152,6 +152,26 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               1,000,000): 6 straight steps against 3 + a train-state
               checkpoint under ``build/`` + restore + 3 (parameters within
               rtol 1e-5; bitwise reported).
+11. lm      — after 10, every earlier model freed: the LM family (no
+              kernel; cuBLAS's reduced-precision bf16 reduction off, timed
+              on and off first).  11a: stablelm-12b at full width and all
+              40 layers, bf16 weights drawn on the card (24.3 GB), a
+              prefill of 32,736 tokens, its cache copied into a
+              32,768-position ``init_cache``, 32 decode steps, one step
+              under torch.profiler; one ``forward`` over the 32,768 tokens
+              whose f32 logits at the prefill's and every decode step's
+              position must match theirs (``LM_LOGIT_TOL``); prefill
+              tokens/s and decode p50/p99 beside their bounds, peak memory.
+              11b: moonshot-v1-16b-a3b at full width, 4 of 48 layers, a
+              28,672-token prompt (whole groups of 4,096), the same checks
+              (``LM_MOE_WITHIN`` of the decode positions: a route near a
+              tie may flip), the tokens each expert kept and the choices
+              dropped.  11c: 2 stablelm layers at full width trained at
+              2 x 4,096 tokens with f32 parameters and the launcher's
+              AdamW (a warm-up and 3 timed steps, a CUDA-event split,
+              losses and grad norms finite).  11d: ``launch.train`` for
+              the five LM archs' smoke configs, 12 steps with a checkpoint
+              under ``build/``, then ``--resume``.
 
 Launch counts are read per path: kernel A and B's rerank kernel
 (``csr_rerank_topk``) must launch on the fused path, C and the rerank
@@ -162,9 +182,9 @@ retrieval; A and the rerank kernel (``launches_durable``) on the recovered
 durable index; A and the rerank kernel once a shard per batch
 (``launches_sharded``) on the sharded index; D and its backward once a
 step (``launches_train``, and ``launches`` of the backward's row) on the
-DLRM train steps, no kernel on DIN / SASRec / MIND.  Ends with JSON lines
-of the recsys, durability, front-door, tiered, sharded and train numbers,
-a JSON line
+DLRM train steps, no kernel on DIN / SASRec / MIND or the LM path
+(``launches_lm``).  Ends with JSON lines of the recsys, durability,
+front-door, tiered, sharded, train and lm numbers, a JSON line
 of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
@@ -663,12 +683,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bwd_row, train_line, train_counts = train_path(args.seed, dev, card)
     kernel_rows.append(bwd_row)
+
+    # -- 11. the LM family: stablelm-12b served and trained, the MoE --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_line, lm_counts = lm_path(args.seed, dev, card)
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
         row["launches_tiered"] = tiered_counts[row["name"]]
         row["launches_sharded"] = sharded_counts[row["name"]]
         row["launches_train"] = train_counts[row["name"]]
+        row["launches_lm"] = lm_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -682,6 +708,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tiered": tiered_line}), flush=True)
     print(json.dumps({"sharded": sharded_line}), flush=True)
     print(json.dumps({"train": train_line}), flush=True)
+    print(json.dumps({"lm": lm_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2756,6 +2783,407 @@ def dlrm_flops(cfg, B: int) -> int:
         sum(a * b for a, b in zip(dims_t[:-1], dims_t[1:]))
     inter = (cfg.n_sparse + 1) ** 2 * D
     return 2 * B * (mlp + inter)
+
+
+# -- 11. the LM family: stablelm-12b served and trained, moonshot's MoE -------
+
+BF16_OPS_PER_S = 989e12            # dense bf16 on the tensor cores
+LM_SEQ = 32_768                    # prefill_32k's seq, decode_32k's cache
+LM_DECODE_STEPS = 32               # phase 11a/b: decode steps after prefill
+LM_MOE_LAYERS = 4                  # phase 11b: 4 of moonshot's 48 layers
+LM_TRAIN_LAYERS = 2                # phase 11c: 2 of stablelm's 40 layers
+LM_TRAIN_SEQ = 4_096               # phase 11c: train_4k's seq
+LM_TRAIN_BATCH = 2                 # phase 11c: of train_4k's 256
+LM_TRAIN_TIMED = 3                 # phase 11c: timed steps after one warm-up
+LM_LAUNCH_STEPS = 12               # phase 11d: launcher steps, ckpt at 10
+#: Largest |prefill or decode logit - forward logit| over the vocabulary
+#: allowed, as a share of the forward logits' standard deviation at that
+#: position.  Both sides run the bf16 program with f32 attention; they
+#: differ in the GEMM shapes cuBLAS picks kernels for (32,736 or 1 rows
+#: against 32,768), in decode's one-pass softmax against prefill's running
+#: one, and in GEMV against GEMM sums, and each bf16 rounding that lands the
+#: other way moves every later layer: stablelm-12b's 40 layers read
+#: 0.12-0.14 on an H100 (PERF.md §6).  A wrong position, cache slot or
+#: mask gives logits unrelated to the forward's, whose largest difference
+#: over 100k entries is several standard deviations.
+LM_LOGIT_TOL = 0.25
+#: Share of an MoE model's decode positions that must be within
+#: LM_LOGIT_TOL: a token whose top-k experts are near a tie routes by the
+#: last bit of its router input, which those roundings move, and a flipped
+#: route moves its logits by O(1) (seen on an H100: 1 of 32 positions at
+#: 0.36, the median 0.012).
+LM_MOE_WITHIN = 0.9
+
+
+def lm_path(seed: int, dev, card: str):
+    """Phase 11: the LM family on the card (11a stablelm-12b served at full
+    width and depth, 11b moonshot-v1-16b-a3b's MoE at full width, 11c
+    stablelm-12b layers trained, 11d the launcher for the five LM archs).
+    Returns (the lm JSON line, the kernels' launch counts over it)."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import moonshot_v1_16b_a3b, stablelm_12b
+
+    t_phase = time.perf_counter()
+    line = {"card": card, "bf16_reduction": bf16_reduction_probe(dev)}
+    # cuBLAS may otherwise sum split-K partials of a bf16 GEMM in bf16; the
+    # reference's dots accumulate in f32
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            line["stablelm_12b"] = lm_serve(
+                stablelm_12b.full_config(), LM_SEQ - LM_DECODE_STEPS, seed,
+                dev, card, "11a")
+            moe = dataclasses.replace(moonshot_v1_16b_a3b.full_config(),
+                                      n_layers=LM_MOE_LAYERS)
+            # whole groups: the reference's moe_layer needs T % g == 0
+            prompt = (LM_SEQ - LM_DECODE_STEPS) // moe.group_size \
+                * moe.group_size
+            line["moonshot_v1_16b_a3b"] = lm_serve(moe, prompt, seed, dev,
+                                                   card, "11b")
+        line["train"] = lm_train(stablelm_12b.full_config(), seed, dev, card)
+        line["launcher"] = lm_launcher(dev)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the LM path launched a kernel: {counts}")
+    line["wall_s"] = time.perf_counter() - t_phase
+    log(f"[11 lm] phase {line['wall_s']:.1f}s; kernels A-D' launched "
+        f"{counts} ({card})")
+    return line, counts
+
+
+def bf16_reduction_probe(dev) -> dict:
+    """CUDA-event ms and max |difference| of stablelm-12b's MLP products
+    (decode [1, 5120] x [5120, 13824] and prefill [32768, 5120] x [5120,
+    13824], bf16) with cuBLAS's reduced-precision bf16 reduction allowed
+    and not."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    w = (torch.randn((5120, 13824), generator=gen, device=dev)
+         / 5120 ** 0.5).to(torch.bfloat16)
+    out = {}
+    for name, rows in (("decode", 1), ("prefill", LM_SEQ)):
+        x = torch.randn((rows, 5120), generator=gen, device=dev).to(
+            torch.bfloat16)
+        res = {}
+        for allow in (True, False, True, False):
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = allow
+            ms = cuda_ms(lambda: torch.matmul(x, w), 20 if rows == 1 else 5)
+            res.setdefault(allow, []).append(ms)
+            res[f"y{allow}"] = torch.matmul(x, w).float()
+        out[name] = {"ms_allowed": res[True], "ms_not_allowed": res[False],
+                     "max_abs_diff": float((res["yTrue"] - res["yFalse"])
+                                           .abs().max())}
+        del x, res
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    log("[11 lm] bf16 GEMM with reduced-precision reduction allowed / not: "
+        + "; ".join(f"{k} {v['ms_allowed']} / {v['ms_not_allowed']} ms, "
+                    f"max abs diff {v['max_abs_diff']:.3g}"
+                    for k, v in out.items()))
+    return out
+
+
+def lm_work(cfg, T: int, kept: int = None) -> dict:
+    """Operations of a causal forward over T positions of ``cfg`` (no
+    window): GEMM FLOPs of the projections, router and MLPs (the MoE's
+    ``kept`` routed choices over all layers, or T·k a layer), and f32
+    attention FLOPs (q·k and p·v over the causal keys, T(T+1)/2 pairs a
+    head)."""
+    d, H, KV, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    proj = 2 * d * (H + 2 * KV) * hd + 2 * H * hd * d
+    if cfg.moe:       # kept: routed choices over all layers
+        kept = T * cfg.moe_top_k * cfg.n_layers if kept is None else kept
+        gemm = cfg.n_layers * T * (proj + 2 * d * cfg.n_experts) \
+            + kept * 2 * 3 * d * f
+    else:
+        gemm = cfg.n_layers * T * (proj + 2 * 3 * d * f)
+    attn = cfg.n_layers * 4 * H * hd * T * (T + 1) // 2
+    return {"gemm_flops": gemm, "attn_flops": attn}
+
+
+def lm_serve(cfg, prompt: int, seed: int, dev, card: str, tag: str) -> dict:
+    """11a / 11b: ``cfg``'s bf16 weights drawn on the card, a prefill of
+    ``prompt`` tokens, its cache copied into the first positions of
+    ``init_cache(cfg, 1, LM_SEQ)``, ``LM_DECODE_STEPS`` decode steps, one
+    step under ``torch.profiler``; then one ``forward`` over the LM_SEQ
+    tokens, whose f32 logits at positions prompt - 1 .. prompt + 31 the
+    prefill's and each decode step's logits must match."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tr
+
+    _new_peak()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tr.init_params(gen, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in model.parameters())
+    toks = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    tr.prefill(model, toks[:, :1024], cfg)           # cuBLAS's first calls
+    stats = [] if cfg.moe else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_p, pcache = tr.prefill(model, toks[:, :prompt], cfg,
+                                  moe_stats=stats)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    cache = tr.init_cache(cfg, 1, LM_SEQ, device=dev)
+    for n in cache:
+        cache[n][:, :, :, :prompt] = pcache[n]
+    del pcache
+    walls, dec = [], []
+    for i in range(LM_DECODE_STEPS):
+        pos = prompt + i
+        t0 = time.perf_counter()
+        lg, cache = tr.decode_step(model, cache, toks[:, pos:pos + 1], pos,
+                                   cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dec.append(lg)
+    # the last step again: it rewrites its slot with the same values
+    prof = busy_summary(*device_profile(
+        lambda: tr.decode_step(model, cache, toks[:, pos:pos + 1], pos, cfg),
+        3))
+    serve_peak = torch.cuda.max_memory_allocated()
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fwd_stats = [] if cfg.moe else None
+    t0 = time.perf_counter()
+    hidden, _ = tr.forward(model, toks, cfg, moe_stats=fwd_stats)
+    ref = tr.logits_f32(model, hidden[0, prompt - 1:prompt + LM_DECODE_STEPS])
+    torch.cuda.synchronize()
+    t_forward = time.perf_counter() - t0
+    del hidden
+    got = torch.cat([logits_p] + dec)
+    if not bool(torch.isfinite(got).all()) or got.shape != ref.shape:
+        raise AssertionError(f"{tag}: bad logits {tuple(got.shape)}")
+    diff = (got - ref).abs().amax(dim=1)
+    spread = ref.std(dim=1)
+    rel = (diff / spread).tolist()
+    checked = list(range(len(rel)))
+    drops = None
+    if cfg.moe:
+        # decode routes each token alone (never dropped); the forward's
+        # group holding the decoded positions must drop nothing for the two
+        # to be the same function there
+        grp = prompt // cfg.group_size
+        drops = [int(s["dropped"][grp]) for s in fwd_stats]
+        if any(drops):
+            checked = [0]
+    within = [rel[i] <= LM_LOGIT_TOL for i in checked]
+    log(f"[{tag} lm] {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{weight_bytes / 1e9:.2f} GB bf16 weights drawn in {t_init:.1f}s): "
+        f"logits vs one forward over {LM_SEQ} tokens (forward "
+        f"{t_forward:.1f}s): prefill max abs diff {float(diff[0]):.4g} "
+        f"({rel[0]:.4f} of the logits' std {float(spread[0]):.4g}); decode "
+        f"steps max {max(rel[1:]):.4f}, median "
+        f"{float(np.median(rel[1:])):.4f} of std; {sum(within)} of "
+        f"{len(checked)} checked positions within {LM_LOGIT_TOL}"
+        + ("" if drops is None else f"; the decoded positions' group drops "
+           f"{drops} a layer"))
+    need = len(checked) if not cfg.moe else \
+        max(1, int(np.ceil(LM_MOE_WITHIN * len(checked))))
+    if not within[0] or sum(within) < need:
+        raise AssertionError(f"{tag}: logits differ from the forward's by "
+                             f"{[round(rel[i], 4) for i in checked]} of "
+                             f"their std; {sum(within)} within "
+                             f"{LM_LOGIT_TOL}, {need} needed")
+
+    T = prompt
+    kept = sum(int(s["received"].sum()) for s in stats) if stats else None
+    work = lm_work(cfg, T, kept)
+    bound_prefill = max(work["gemm_flops"] / BF16_OPS_PER_S
+                        + work["attn_flops"] / F32_OPS_PER_S,
+                        (weight_bytes + 2 * cfg.n_layers * T * cfg.n_kv_heads
+                         * cfg.head_dim * 2) / HBM_BYTES_PER_S)
+    active = cfg.active_param_count() - cfg.vocab * cfg.d_model
+    cache_bytes = [2 * cfg.n_layers * (prompt + i + 1) * cfg.n_kv_heads
+                   * cfg.head_dim * 2 for i in range(LM_DECODE_STEPS)]
+    bound_decode = (2 * active + float(np.mean(cache_bytes))) \
+        / HBM_BYTES_PER_S * 1e3
+    lat = request_latency(walls, 1)
+    out = {"layers": cfg.n_layers, "weight_bytes": weight_bytes,
+           "init_s": t_init, "prompt": prompt, "cache_positions": LM_SEQ,
+           "prefill_s": t_prefill, "prefill_tokens_per_s": T / t_prefill,
+           "prefill_bound_s": bound_prefill, **work,
+           "decode_ms_p50": lat["p50"], "decode_ms_p99": lat["p99"],
+           "decode_walls_ms": walls, "decode_bound_ms": bound_decode,
+           "decode_profile": prof, "forward_s": t_forward,
+           "prefill_peak_bytes": prefill_peak,
+           "serve_peak_bytes": serve_peak,
+           "logit_max_abs_diff": diff.tolist(), "logit_std": spread.tolist(),
+           "logit_diff_over_std": rel, "checked_positions": len(checked)}
+    if cfg.moe:
+        out["expert_tokens"] = [s["received"].tolist() for s in stats]
+        out["dropped"] = [int(s["dropped"].sum()) for s in stats]
+        out["forward_group_drops"] = drops
+    log(f"[{tag} lm] prefill {T} tokens in {t_prefill:.2f}s "
+        f"({T / t_prefill:.0f} tokens/s; bound {bound_prefill:.2f}s: "
+        f"{work['gemm_flops']:.3g} bf16 GEMM FLOPs at 989 TFLOP/s + "
+        f"{work['attn_flops']:.3g} f32 attention FLOPs at 67 TFLOP/s); "
+        f"decode p50 {lat['p50']:.2f} / p99 {lat['p99']:.2f} ms a token "
+        f"(bound {bound_decode:.2f} ms); decode step busy "
+        + ("not measured" if prof["busy_share"] is None else
+           f"{prof['busy_share']:.3f} of {prof['wall_ms']:.2f} ms, largest: "
+           + "; ".join(f"{k} {v:.2f} ms" for k, v in
+                       prof["top_kernels_ms"].items()))
+        + f"; peak {prefill_peak / 1e9:.2f} GB in prefill, "
+        f"{serve_peak / 1e9:.2f} GB with the cache ({card})")
+    if cfg.moe:
+        log(f"[{tag} lm] prefill routing: tokens each expert kept, per "
+            f"layer (min / max of {cfg.n_experts}): "
+            + "; ".join(f"{min(r)} / {max(r)}" for r in out["expert_tokens"])
+            + f"; choices dropped past cap a layer {out['dropped']}")
+    if max(prefill_peak, serve_peak) >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"{tag}: peak device memory "
+                             f"{max(prefill_peak, serve_peak) / 1e9:.2f} GB")
+    del model, toks, dec, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(cfg, seed: int, dev, card: str) -> dict:
+    """11c: ``LM_TRAIN_LAYERS`` of ``cfg``'s layers at full width, f32
+    parameters (the launcher's), ``make_train_step`` with the launcher's
+    AdamW at seq LM_TRAIN_SEQ: one warm-up and LM_TRAIN_TIMED timed steps,
+    a CUDA-event split of one more."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import loaders
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(cfg, n_layers=LM_TRAIN_LAYERS)
+    B = LM_TRAIN_BATCH
+    _new_peak()
+    model = tr.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                decay_steps=LM_TRAIN_TIMED + 2)
+    step = loop.make_train_step(
+        lambda p, b: tr.lm_loss(p, b[0], b[1], cfg), opt_cfg)
+    state = loop.init_state(model)
+    batches = [loaders.lm_batch(seed, s, B, LM_TRAIN_SEQ, cfg.vocab,
+                                device=dev)
+               for s in range(LM_TRAIN_TIMED + 2)]
+    walls, losses, norms = [], [], []
+    for s in range(LM_TRAIN_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if not (np_all_finite(losses) and np_all_finite(norms)):
+        raise AssertionError(f"11c: non-finite losses {losses} or grad "
+                             f"norms {norms}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    toks, labels = batches[-1]
+    ev[0].record()
+    loss, _ = tr.lm_loss(model, toks, labels, cfg)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    adamw.update(model.leaves(grad=True), state.opt, model.leaves(), opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    for p in model.parameters():
+        p.grad = None
+    split = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "update_ms": ev[2].elapsed_time(ev[3])}
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in model.parameters())
+    T = B * LM_TRAIN_SEQ
+    work = lm_work(cfg, LM_TRAIN_SEQ)
+    gemm = 3 * (B * work["gemm_flops"] + 2 * T * cfg.d_model * cfg.vocab)
+    attn = 3 * B * work["attn_flops"]        # forward, 2x in the backward
+    bound_ms = (gemm / BF16_OPS_PER_S + attn / F32_OPS_PER_S
+                + 7 * 4 * n_params / HBM_BYTES_PER_S) * 1e3
+    p50 = float(np.percentile(walls[1:], 50))
+    log(f"[11c lm train] {cfg.name} cut to {cfg.n_layers} layers "
+        f"({n_params / 1e9:.3f} B f32 parameters), B={B} x {LM_TRAIN_SEQ}: "
+        f"step walls {[round(w, 1) for w in walls]} ms (first: warm-up), "
+        f"p50 {p50:.1f} ms, {T / p50 * 1e3:.0f} tokens/s (bound "
+        f"{bound_ms:.1f} ms); losses {[round(x, 4) for x in losses]}, grad "
+        f"norms {[round(x, 3) for x in norms]}; one step's CUDA events: "
+        f"forward {split['forward_ms']:.1f}, backward "
+        f"{split['backward_ms']:.1f}, clip + AdamW {split['update_ms']:.1f} "
+        f"ms; peak {peak / 1e9:.2f} GB ({card})")
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"11c: peak device memory {peak / 1e9:.2f} GB")
+    del model, state, step, batches, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "batch": B, "seq": LM_TRAIN_SEQ,
+            "params": n_params, "walls_ms": walls, "step_ms_p50": p50,
+            "tokens_per_s": T / p50 * 1e3, "losses": losses,
+            "grad_norms": norms, "split": split, "bound_ms": bound_ms,
+            "peak_bytes": peak}
+
+
+def lm_launcher(dev) -> dict:
+    """11d: ``repro_torch.launch.train`` on the card for each LM arch's
+    smoke config: LM_LAUNCH_STEPS steps with a checkpoint at step 10 under
+    ``build/``, then ``--resume``, which must print ``resumed from step
+    10``."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launcher
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    archs = [a for a in registry.ARCHS if a not in registry.NOT_PORTED
+             and registry.get(a).FAMILY == "lm"]
+    for arch in archs:
+        scratch = tempfile.mkdtemp(prefix="lm-11d-", dir=root)
+        try:
+            t0 = time.perf_counter()
+            runs = []
+            for extra in ([], ["--resume"]):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    launcher.main(["--arch", arch, "--steps",
+                                   str(LM_LAUNCH_STEPS), "--ckpt-dir",
+                                   scratch, "--ckpt-every", "10", *extra])
+                runs.append(buf.getvalue().splitlines())
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+        first, resumed = runs
+        if not (first and first[0].startswith(f"[{arch}] step    1 loss=")
+                and resumed and resumed[0] == "resumed from step 10"):
+            raise AssertionError(f"11d {arch}: launcher printed {runs}")
+        out[arch] = {"wall_s": time.perf_counter() - t0,
+                     "lines": first + resumed}
+        log(f"[11d lm launcher] {arch}: {' | '.join(first + resumed)} "
+            f"({out[arch]['wall_s']:.1f}s)")
+    return out
 
 
 def recsys_path(seed: int, dev, card: str):

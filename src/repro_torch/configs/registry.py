@@ -2,9 +2,10 @@
 ``repro.configs.registry``.
 
 ``ARCHS`` and ``ASSIGNED`` are the reference's.  The port has the configs
-of the recsys family and of ``sinnamon-engine``; :func:`get` raises
-``NotImplementedError`` naming the ROADMAP item of an arch whose model is
-not ported yet, and :func:`all_cells` yields the cells of the ported archs.
+of the LM and recsys families and of ``sinnamon-engine``; :func:`get`
+raises ``NotImplementedError`` naming the ROADMAP item of an arch whose
+model is not ported yet, and :func:`all_cells` yields the cells of the
+ported archs.
 """
 import importlib
 
@@ -25,12 +26,8 @@ ARCHS = {
 
 ASSIGNED = [a for a in ARCHS if a != "sinnamon-engine"]
 
-_LM = "ROADMAP.md, Queue 1 item 12: the LM family"
-_GNN = "ROADMAP.md, Queue 1 item 12: the GNN family"
 #: Archs whose model is not ported yet -> the ROADMAP item that ports it.
-NOT_PORTED = {"deepseek-67b": _LM, "stablelm-12b": _LM, "gemma3-27b": _LM,
-              "llama4-scout-17b-a16e": _LM, "moonshot-v1-16b-a3b": _LM,
-              "equiformer-v2": _GNN}
+NOT_PORTED = {"equiformer-v2": "ROADMAP.md, Queue 1 item 12: the GNN family"}
 
 
 def get(arch: str):

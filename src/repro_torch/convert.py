@@ -28,8 +28,9 @@ in order) through :func:`state_to_numpy`.
 
 :func:`recsys_params_from_numpy` carries a reference recsys parameter tree
 (DLRM, DIN, SASRec or MIND) the same way into the port's model, and
-:func:`recsys_params_to_numpy` is its inverse.  :func:`train_state_to_numpy`
-flattens a ``repro_torch.train.loop.TrainState`` to the leaves a JAX
+:func:`recsys_params_to_numpy` is its inverse; :func:`lm_params_from_numpy`
+and :func:`lm_params_to_numpy` do the same for an LM's tree.
+:func:`train_state_to_numpy` flattens a ``repro_torch.train.loop.TrainState`` to the leaves a JAX
 ``TrainState`` checkpoint holds (``.params/<path>``, ``.opt/.m/<path>``,
 ``.opt/.v/<path>``, ``.opt/.step``), and :func:`train_state_from_numpy`
 loads such leaves, written by either package, back in place.
@@ -269,10 +270,32 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def recsys_params_to_numpy(model) -> dict:
-    """The reference's parameter tree of a port recsys model, as nested
-    dicts of host numpy arrays (bf16 leaves as their raw uint16 bits); the
-    inverse of :func:`recsys_params_from_numpy`."""
+    """The reference's parameter tree of a port model (recsys or LM), as
+    nested dicts of host numpy arrays (bf16 leaves as their raw uint16
+    bits); the inverse of :func:`recsys_params_from_numpy` and
+    :func:`lm_params_from_numpy`."""
     return unflatten_tree({k: _host(t) for k, t in model.leaves().items()})
+
+
+def lm_params_from_numpy(params: dict, cfg, device=None):
+    """The port's :class:`repro_torch.models.transformer.TransformerLM`
+    holding the reference's LM parameter tree (``embed``, ``layers/...``,
+    ``ln_f``, ``unembed``; numpy arrays, or anything ``np.asarray``
+    reads) bit for bit, on ``device`` (None: the CUDA card).  The model's
+    dtype is the leaves': bfloat16 for 2-byte leaves (ml_dtypes' bfloat16
+    or raw uint16 bits), float32 otherwise."""
+    from repro_torch.models import transformer
+    flat = flatten_tree(params)
+    wide = np.asarray(flat["embed"]).dtype.itemsize
+    dtype = {2: torch.bfloat16, 4: torch.float32}[wide]
+    model = transformer.TransformerLM(cfg, dtype=dtype, device=device,
+                                      draw=False)
+    _load(model.leaves(), flat, cfg.name)
+    return model
+
+
+#: An LM's parameter tree: the same flattening of ``leaves()``.
+lm_params_to_numpy = recsys_params_to_numpy
 
 
 def _state_leaves(state) -> dict:

@@ -1,6 +1,6 @@
-"""Synthetic recsys batches, deterministic in (seed, step): the numpy
-Philox draws of ``repro.data.loaders.recsys_batch``, copied, so every field
-equals the reference's bit for bit.  ``lm_batch`` waits for the LM models.
+"""Synthetic LM and recsys batches, deterministic in (seed, step): the
+numpy Philox draws of ``repro.data.loaders``, copied, so every token and
+field equals the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -10,6 +10,19 @@ import torch
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.recsys import RecsysBatch, RecsysConfig
+
+
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+             device=None):
+    """(tokens, labels), int32 [batch, seq] each on ``device`` (None: the
+    CUDA card): Zipfian token ids, labels the tokens shifted by one."""
+    gen = np.random.Generator(np.random.Philox(key=(seed << 20) ^ step))
+    # Zipfian tokens — realistic softmax/embedding access pattern.
+    ranks = gen.zipf(1.3, size=(batch, seq + 1))
+    toks = np.minimum(ranks - 1, vocab - 1).astype(np.int32)
+    dev = resolve_device(device)
+    return (torch.from_numpy(np.ascontiguousarray(toks[:, :-1])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(toks[:, 1:])).to(dev))
 
 
 def recsys_batch(seed: int, step: int, batch: int, cfg: RecsysConfig,

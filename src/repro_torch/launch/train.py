@@ -1,17 +1,20 @@
 """Training launcher with checkpoint auto-resume, as
-``repro.launch.train``: the recsys family's smoke configs, end to end.
+``repro.launch.train``: the LM and recsys families' smoke configs, end to
+end.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
         --steps 50 [--ckpt-dir /tmp/ck] [--ckpt-every 25] [--resume] \
         [--microbatches 2] [--device cuda|cpu]
 
 Prints the reference's lines (``[arch] step N loss=... |g|=...`` at the
-first step and every 10th, ``resumed from step N``).  Batches are
-``repro_torch.data.loaders.recsys_batch(0, step, 8·microbatches, cfg)``,
-the reference's draws; the weights are drawn from seed 0 on ``--device``
-(None: the CUDA card).  Checkpoints are train states in the reference's
-layout (``repro_torch.convert.train_state_to_numpy``), so either launcher
-resumes the other's.  The LM and GNN archs are not ported yet and raise
+first step and every 10th, ``resumed from step N``).  Batches are the
+reference's draws: ``repro_torch.data.loaders.lm_batch(0, step,
+4·microbatches, 64, cfg.vocab)`` for the LM family (loss ``lm_loss``),
+``recsys_batch(0, step, 8·microbatches, cfg)`` for the recsys family; the
+f32 weights are drawn from seed 0 on ``--device`` (None: the CUDA card).
+Checkpoints are train states in the reference's layout
+(``repro_torch.convert.train_state_to_numpy``), so either launcher resumes
+the other's.  The GNN archs are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -27,6 +30,7 @@ from repro_torch.configs import registry
 from repro_torch.core.engine import resolve_device
 from repro_torch.data import loaders
 from repro_torch.models import recsys
+from repro_torch.models import transformer as tr
 from repro_torch.optim import adamw
 from repro_torch.train import loop
 
@@ -35,20 +39,30 @@ def build(arch: str, microbatches: int, device=None):
     """(params, loss_fn, batch_at, microbatches) of ``arch``'s smoke
     config on ``device``."""
     mod = registry.get(arch)
-    if mod.FAMILY != "recsys":
+    if mod.FAMILY not in ("lm", "recsys"):
         raise ValueError(f"{arch}: use repro_torch.launch.serve for "
                          f"retrieval")
     dev = resolve_device(device)
     cfg = mod.smoke_config()
-    params = recsys.init_params(torch.Generator(device=dev).manual_seed(0),
-                                cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if mod.FAMILY == "lm":
+        params = tr.init_params(gen, cfg, device=dev)
 
-    def loss_fn(p, b):
-        return recsys.loss(p, b, cfg), {}
+        def loss_fn(p, b):
+            return tr.lm_loss(p, b[0], b[1], cfg)
 
-    def batch_at(step):
-        return loaders.recsys_batch(0, step, 8 * microbatches, cfg,
+        def batch_at(step):
+            return loaders.lm_batch(0, step, 4 * microbatches, 64, cfg.vocab,
                                     device=dev)
+    else:
+        params = recsys.init_params(gen, cfg, device=dev)
+
+        def loss_fn(p, b):
+            return recsys.loss(p, b, cfg), {}
+
+        def batch_at(step):
+            return loaders.recsys_batch(0, step, 8 * microbatches, cfg,
+                                        device=dev)
 
     return params, loss_fn, batch_at, microbatches
 

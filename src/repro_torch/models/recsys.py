@@ -43,6 +43,7 @@ from torch.nn.functional import embedding
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import tree_leaves
 
 Tensor = torch.Tensor
 
@@ -269,13 +270,7 @@ class _Recsys(nn.Module):
     def leaves(self, grad: bool = False) -> dict:
         """{reference leaf path: tensor} in the reference's tree order
         (``.grad`` of each, zeros where it has none, when ``grad``)."""
-        out = {}
-        for name, p in self.named_parameters():
-            t = p
-            if grad:
-                t = p.grad if p.grad is not None else torch.zeros_like(p)
-            out[name.replace(".", "/")] = t
-        return dict(sorted(out.items(), key=lambda kv: kv[0].split("/")))
+        return tree_leaves(self, grad)
 
 
 # ---------------------------------------------------------------------------

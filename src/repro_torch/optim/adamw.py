@@ -3,7 +3,7 @@
 reference's float program step for step.
 
 Everything works on a dict of tensors keyed by the reference's leaf paths
-(a recsys model's ``leaves()``).  The update is
+(a model's ``leaves()``).  The update is
 in place: at DLRM-rm2's width one leaf is 6.66 GB, and its gradient, m and
 v as large again, so an out-of-place step would need a 6.66 GB temporary
 for every intermediate.  Each leaf is walked in chunks of

@@ -1,8 +1,8 @@
 """The generic train step, as ``repro.train.loop``: gradients (with
 microbatch accumulation in f32), global-norm clipping and AdamW.
 
-``params`` is a model with ``leaves()`` (the recsys models of
-``repro_torch.models.recsys``): the dict of its tensors keyed by the
+``params`` is a model with ``leaves()`` (``repro_torch.models.transformer``
+and ``repro_torch.models.recsys``): the dict of its tensors keyed by the
 reference's leaf paths that the optimiser and the train-state checkpoints
 (``repro_torch.convert.train_state_to_numpy``) read.  Gradients come from
 ``loss.backward()`` into each parameter's ``.grad``; the step updates the

@@ -1310,3 +1310,116 @@ def test_seq_models_on_card_match_cpu(cuda, arch):
     for k in gc_:
         torch.testing.assert_close(gg[k], gc_[k], rtol=1e-4, atol=1e-6,
                                    msg=k)
+
+
+# -- the LM family (no kernel of the port: torch on the card vs the CPU) ------
+
+LM_ARCHS = ("deepseek-67b", "stablelm-12b", "gemma3-27b",
+            "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b")
+
+
+def _lm_close(got, want, tol, what):
+    """max |got - want| within ``tol`` of the largest |want|."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, f"{what}: {err:.3g} > {tol:g} x {scale:.3g}"
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_on_card_matches_cpu(cuda, arch):
+    """A smoke config on the card against the port on the CPU from the
+    same f32 weights, activations in f32 (TF32 off: 1e-4 of the largest
+    value, f32 sums in another order): forward, loss and every gradient,
+    prefill and two decode steps."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.data import loaders
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(registry.get(arch).smoke_config(),
+                              dtype="float32")
+    tree = convert.lm_params_to_numpy(
+        tr.init_params(torch.Generator().manual_seed(2), cfg, device="cpu"))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = convert.lm_params_from_numpy(tree, cfg, device=dev)
+        toks, labels = loaders.lm_batch(0, 3, 2, 64, cfg.vocab, device=dev)
+        loss, metrics = tr.lm_loss(model, toks, labels, cfg)
+        loss.backward()
+        logits, cache = tr.prefill(model, toks[:, :48], cfg)
+        full = tr.init_cache(cfg, 2, 50, device=dev)
+        for n in full:
+            full[n][:, :, :, :48] = cache[n]
+        dec = [tr.decode_step(model, full, toks[:, p:p + 1], p, cfg)[0]
+               for p in (48, 49)]
+        out[str(dev)] = (loss, metrics["aux"], model.leaves(grad=True),
+                         logits, dec)
+    (lc, ac, gc_, pc, dc), (lg, ag, gg, pg, dg) = out["cpu"], out[str(cuda)]
+    _lm_close(lg, lc, 1e-5, "loss")
+    _lm_close(ag, ac, 1e-5, "aux")
+    for k in gc_:
+        _lm_close(gg[k], gc_[k], 1e-4, k)
+    _lm_close(pg, pc, 1e-4, "prefill logits")
+    for a, b in zip(dg, dc):
+        _lm_close(a, b, 1e-4, "decode logits")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm-12b", "gemma3-27b"])
+def test_lm_prefill_and_decode_match_forward_on_card(cuda, arch, dtype):
+    """Prefill, then decode through the cache, against one forward over the
+    whole sequence, all on the card: f32 within 1e-4 of the largest logit;
+    bf16 activations within 5e-2 (the GEMM shapes differ, so bf16 roundings
+    differ, and each moves the later layers)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tr
+    cfg = dataclasses.replace(registry.get(arch).smoke_config(), dtype=dtype)
+    model = tr.init_params(torch.Generator(device=cuda).manual_seed(3), cfg,
+                           device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 80), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(4))
+    with torch.no_grad():
+        hidden, _ = tr.forward(model, toks, cfg)
+        want = tr.logits_f32(model, hidden[:, 59:])
+    logits, pcache = tr.prefill(model, toks[:, :60], cfg)
+    cache = tr.init_cache(cfg, 2, 80, device=cuda)
+    for n in cache:
+        cache[n][:, :, :, :60] = pcache[n]
+    got = [logits]
+    for p in range(60, 80):
+        got.append(tr.decode_step(model, cache, toks[:, p:p + 1], p, cfg)[0])
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    _lm_close(torch.stack(got, 1), want, tol, f"{arch} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k,cf", [(1, 0.5), (3, 0.5), (6, 1.25)])
+def test_moe_layer_with_overflow_on_card_matches_cpu(cuda, dtype, top_k, cf):
+    """``moe_layer`` on the card against the CPU, same inputs: the kept
+    and dropped counts equal, the output within 1e-5 of the largest value
+    in f32 and 2**-6 in bf16 (k expert outputs, each rounded), aux within
+    1e-6."""
+    from repro_torch.models import layers
+    g = torch.Generator().manual_seed(5)
+    E, d, f = 16, 32, 24
+    x = torch.randn((2, 64, d), generator=g).to(dtype)
+    ws = [torch.randn(s, generator=g) / s[-2] ** 0.5
+          for s in ((d, E), (E, d, f), (E, d, f), (E, f, d))]
+    out = {}
+    for dev in ("cpu", cuda):
+        stats = []
+        y, aux = layers.moe_layer(x.to(dev), *(w.to(dev) for w in ws),
+                                  top_k=top_k, capacity_factor=cf,
+                                  group_size=32, stats=stats)
+        out[str(dev)] = (y.cpu(), aux.cpu(), stats[0])
+    (yc, ac, sc), (yg, ag, sg) = out["cpu"], out[str(cuda)]
+    assert torch.equal(sg["received"].cpu(), sc["received"])
+    assert torch.equal(sg["dropped"].cpu(), sc["dropped"])
+    if cf < 1:
+        assert int(sc["dropped"].sum()) > 0
+    _lm_close(yg, yc, 1e-5 if dtype == torch.float32 else 2.0 ** -6, "y")
+    _lm_close(ag, ac, 1e-6, "aux")

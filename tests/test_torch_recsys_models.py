@@ -209,8 +209,13 @@ def test_registry_matches_reference():
     assert treg.ARCHS == jreg.ARCHS
     assert treg.ASSIGNED == jreg.ASSIGNED
     ported = [a for a in jreg.ARCHS if a not in treg.NOT_PORTED]
-    assert sorted(ported) == sorted(["sasrec", "mind", "din", "dlrm-rm2",
-                                     "sinnamon-engine"])
+    assert set(treg.NOT_PORTED) == {"equiformer-v2"}
+    assert sorted(ported) == sorted(["deepseek-67b", "stablelm-12b",
+                                     "gemma3-27b", "llama4-scout-17b-a16e",
+                                     "moonshot-v1-16b-a3b", "sasrec", "mind",
+                                     "din", "dlrm-rm2", "sinnamon-engine"])
+    for arch in ported:
+        assert treg.get(arch).FAMILY == jreg.get(arch).FAMILY
     for extra in (False, True):
         assert list(treg.all_cells(extra)) == [
             c for c in jreg.all_cells(extra) if c[0] in ported]
