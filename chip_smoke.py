@@ -172,6 +172,40 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               losses and grad norms finite).  11d: ``launch.train`` for
               the five LM archs' smoke configs, 12 steps with a checkpoint
               under ``build/``, then ``--resume``.
+12. gnn     — after 11, every earlier model freed: the GNN family
+              (equiformer-v2: 12 layers, c=128, l_max=6, m_max=2, 8 heads;
+              f32 weights drawn on the card, graphs on the host from
+              ``--seed``; no kernel; TF32 off, asserted).  12a
+              ``full_graph_sm`` (``random_geometric_graph`` of 2,708 nodes
+              and 10,556 edges padded to 3,072 / 12,288, 1,433 features, 7
+              classes) and 12b ``molecule`` (``molecule_batch`` of 128
+              molecules of 30 atoms and 64 edges, energy + forces), each
+              at full width and depth: ``make_train_step`` with the
+              launcher's AdamW, one warm-up and 3 timed steps (wall p50 /
+              max, nodes/s beside the edge-path FLOP bound, losses and
+              grad norms finite), a CUDA-event split of one more (forward,
+              backward, clip + AdamW), the busy share and largest kernels
+              of a step under torch.profiler, peak memory; then, forward
+              only on the trained weights, the reference's properties at
+              full width (``GNN_INVARIANT_TOL`` / ``GNN_EQUIVARIANT_TOL``:
+              l = 0 outputs and energies invariant, l = 1 rows and forces
+              rotating with D₁(R) under a rotation of ``edge_vec``;
+              ``GNN_ORDER_TOL``: padded edges' payloads inert, ``edge_chunk``
+              halved, a second forward, reported bit-equal or not), and on
+              12a the edge loop's hand-written backward against autograd
+              through the reference's form of the loop.  12c
+              ``minibatch_lg``: the port's ``NeighborSampler`` over a
+              synthetic graph of Reddit's 232,965 nodes × 602 features and
+              41 classes with each in-degree cut to 50, 1,024 seeds at
+              fanout (15, 10) padded to 169,984 nodes / 172,032 edges;
+              ``predict`` at all 12 layers without gradients (walls,
+              nodes/s, the FLOP and accumulator-byte bounds, one chunk's
+              accumulator rescale and scatter timed alone, one layer's
+              busy share, peak), then training at full width with the
+              deepest layer count whose peak, extrapolated from 1- and
+              2-layer steps, stays under 39 GB.  12d: ``launch.train
+              --arch equiformer-v2``, 12 steps with a checkpoint under
+              ``build/`` at step 10, then ``--resume``.
 
 Launch counts are read per path: kernel A and B's rerank kernel
 (``csr_rerank_topk``) must launch on the fused path, C and the rerank
@@ -182,10 +216,10 @@ retrieval; A and the rerank kernel (``launches_durable``) on the recovered
 durable index; A and the rerank kernel once a shard per batch
 (``launches_sharded``) on the sharded index; D and its backward once a
 step (``launches_train``, and ``launches`` of the backward's row) on the
-DLRM train steps, no kernel on DIN / SASRec / MIND or the LM path
-(``launches_lm``).  Ends with JSON lines of the recsys, durability,
-front-door, tiered, sharded, train and lm numbers, a JSON line
-of per-kernel numbers, the card's ``nvidia-smi`` line and
+DLRM train steps, no kernel on DIN / SASRec / MIND, the LM path
+(``launches_lm``) or the GNN path (``launches_gnn``).  Ends with JSON
+lines of the recsys, durability, front-door, tiered, sharded, train, lm
+and gnn numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
 directory without the package.
@@ -281,12 +315,17 @@ def device_profile(fn, calls: int):
 
 
 def busy_summary(wall: float, by_name: dict, top: int = 5) -> dict:
-    """Device busy share of a profiled window and its largest kernels."""
+    """Device busy share of a profiled window and its largest kernels (by
+    the first 80 characters of their names, which many templated kernels
+    share: their times are summed)."""
     busy = sum(by_name.values())
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    short = {}
+    for k, v in by_name.items():
+        short[k[:80]] = short.get(k[:80], 0.0) + v
+    ranked = sorted(short.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall, "device_ms": busy if by_name else None,
             "busy_share": busy / wall if by_name else None,
-            "top_kernels_ms": {k[:80]: v for k, v in ranked}}
+            "top_kernels_ms": dict(ranked)}
 
 
 def draw_sparse(gen, rows: int, psi: int, pad: int, cdf, device):
@@ -688,6 +727,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_line, lm_counts = lm_path(args.seed, dev, card)
+
+    # -- 12. the GNN family: equiformer-v2 trained at full width -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn_line, gnn_counts = gnn_path(args.seed, dev, card)
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
@@ -695,6 +739,7 @@ def main(argv=None) -> int:
         row["launches_sharded"] = sharded_counts[row["name"]]
         row["launches_train"] = train_counts[row["name"]]
         row["launches_lm"] = lm_counts[row["name"]]
+        row["launches_gnn"] = gnn_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -709,6 +754,7 @@ def main(argv=None) -> int:
     print(json.dumps({"sharded": sharded_line}), flush=True)
     print(json.dumps({"train": train_line}), flush=True)
     print(json.dumps({"lm": lm_line}), flush=True)
+    print(json.dumps({"gnn": gnn_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3159,8 +3205,7 @@ def lm_launcher(dev) -> dict:
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     out = {}
-    archs = [a for a in registry.ARCHS if a not in registry.NOT_PORTED
-             and registry.get(a).FAMILY == "lm"]
+    archs = [a for a in registry.ARCHS if registry.get(a).FAMILY == "lm"]
     for arch in archs:
         scratch = tempfile.mkdtemp(prefix="lm-11d-", dir=root)
         try:
@@ -3183,6 +3228,543 @@ def lm_launcher(dev) -> dict:
                      "lines": first + resumed}
         log(f"[11d lm launcher] {arch}: {' | '.join(first + resumed)} "
             f"({out[arch]['wall_s']:.1f}s)")
+    return out
+
+
+# -- 12. the GNN family: equiformer-v2 trained at full width -----------------
+
+GNN_TIMED = 3                      # 12a / 12b: timed steps after a warm-up
+GNN_LG_DEGREE = 50                 # 12c: in-degree the Reddit-sized graph
+                                   # is cut to (from 492 on average)
+GNN_LG_TIMED = 2                   # 12c: timed train steps after a warm-up
+GNN_LAUNCH_STEPS = 12              # 12d: launcher steps, ckpt at 10
+#: 12a / 12b rotation checks, tests/test_gnn.py's tolerances as shares of
+#: the forward's largest |value| (at least 1): the l = 0 outputs (and
+#: energies) within 1e-3, the l = 1 rows (and forces) rotated with
+#: D₁(R) within 2e-3.  The J matrices are least-squares fits and every
+#: rotation is f32, so an equivariant model misses by f32 rounding alone;
+#: a wrong frame misses by O(1).
+GNN_INVARIANT_TOL, GNN_EQUIVARIANT_TOL = 1e-3, 2e-3
+#: Padded edges' payloads changed, ``edge_chunk`` halved, the hand-written
+#: backward against autograd through the reference's form of the loop:
+#: max |difference| within 1e-4 of the reference side's largest |value|
+#: (the reference's chunking test: rtol 1e-4 at 2 layers).  Each side sums
+#: the same f32 terms in another order (``index_add_`` on the card sums
+#: with atomics, so not even two forwards are bit-equal); a pad that leaks
+#: or a wrong chunk boundary moves outputs by O(1).
+GNN_ORDER_TOL = 1e-4
+
+
+def gnn_path(seed: int, dev, card: str):
+    """Phase 12: the GNN family on the card (12a ``full_graph_sm`` and 12b
+    ``molecule`` trained at full width and depth, with the reference's
+    properties checked at full width; 12c ``minibatch_lg``'s sampled
+    subgraph: a forward at all 12 layers and training at the deepest cut
+    that stays under PEAK_MEMORY_MAX; 12d the launcher).  Returns (the gnn
+    JSON line, the kernels' launch counts over it)."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import common
+    from repro_torch.configs import equiformer_v2 as eq
+    from repro_torch.data import graph as graphdata
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("12: TF32 is on; the reference's f32 matrix "
+                             "products are full f32")
+    t_phase = time.perf_counter()
+    line = {"card": card}
+    kernels.reset_launch_counts()
+    shapes = common.GNN_SHAPES
+    sm = shapes["full_graph_sm"]
+    hg = graphdata.random_geometric_graph(
+        seed, sm["n_nodes"], sm["n_edges"], sm["d_feat"], sm["n_classes"],
+        sm["pad_nodes"], sm["pad_edges"])
+    line["full_graph_sm"] = gnn_train(eq.full_config(sm), hg, sm["n_nodes"],
+                                      seed, dev, card, "12a")
+    mol = shapes["molecule"]
+    hg = graphdata.molecule_batch(seed, mol["batch_graphs"],
+                                  mol["nodes_per"], mol["edges_per"],
+                                  mol["d_feat"])
+    line["molecule"] = gnn_train(eq.full_config(mol), hg,
+                                 hg.node_feat.shape[0], seed, dev, card,
+                                 "12b")
+    line["minibatch_lg"] = gnn_minibatch(shapes["minibatch_lg"], seed, dev,
+                                         card)
+    line["launcher"] = gnn_launcher()
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the GNN path launched a kernel: {counts}")
+    line["wall_s"] = time.perf_counter() - t_phase
+    log(f"[12 gnn] phase {line['wall_s']:.1f}s; kernels A-D' launched "
+        f"{counts} ({card})")
+    return line, counts
+
+
+def gnn_edge_flops(cfg, edges: int) -> int:
+    """f32 FLOPs of one layer's edge path over ``edges`` edges: the SO(2)
+    convolution (one (n0·C)² product for m = 0, four ((l_max+1-m)·C)² for
+    each m ≥ 1) and the two rotations (Σ (2l+1)² · C each way), a
+    multiply-add counted as 2."""
+    C, n0 = cfg.c, cfg.l_max + 1
+    conv = (n0 * C) ** 2 + sum(4 * ((n0 - m) * C) ** 2
+                               for m in range(1, cfg.m_max + 1))
+    rot = 2 * sum((2 * l + 1) ** 2 for l in range(n0)) * C
+    return 2 * (conv + rot) * edges
+
+
+def gnn_step_split(model, state, g, cfg, opt_cfg) -> dict:
+    """CUDA-event ms of one more step: forward (loss), backward, clip +
+    AdamW."""
+    import torch
+
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss, _ = gnn.loss_fn(model, g, cfg)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    adamw.update(model.leaves(grad=True), state.opt, model.leaves(), opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    for p in model.parameters():
+        p.grad = None
+    return {"forward_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "update_ms": ev[2].elapsed_time(ev[3])}
+
+
+def gnn_fit(cfg, g, seed: int, dev, steps: int):
+    """``cfg``'s model drawn on the card from ``seed``, trained on ``g`` by
+    ``make_train_step`` with the launcher's AdamW for ``steps`` steps: (the
+    model, its state, the AdamW config, step walls ms, losses, grad
+    norms), losses and grad norms finite."""
+    import torch
+
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10,
+                                decay_steps=steps + 2)
+    step = loop.make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg),
+                                opt_cfg)
+    state = loop.init_state(model)
+    walls, losses, norms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, g)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if not (np_all_finite(losses) and np_all_finite(norms)):
+        raise AssertionError(f"{cfg.name}: non-finite losses {losses} or "
+                             f"grad norms {norms}")
+    return model, state, step, opt_cfg, walls, losses, norms
+
+
+def gnn_train(cfg, hg, n_real: int, seed: int, dev, card: str,
+              tag: str) -> dict:
+    """12a / 12b: ``cfg`` at full width and depth on the host graph ``hg``:
+    one warm-up and GNN_TIMED timed train steps, a CUDA-event split of one
+    more, the busy share of a step under torch.profiler, peak memory; then
+    the reference's properties on the trained weights, forward only
+    (:func:`gnn_properties`), and on 12a the edge loop's backward against
+    the reference's form (:func:`gnn_backward_check`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import graph as graphdata
+
+    _new_peak()
+    g = graphdata.to_device(hg, dev)
+    model, state, step, opt_cfg, walls, losses, norms = gnn_fit(
+        cfg, g, seed, dev, GNN_TIMED + 1)
+    split = gnn_step_split(model, state, g, cfg, opt_cfg)
+    prof_wall, by_name = device_profile(lambda: step(state, g), 1)
+    busy = busy_summary(prof_wall, by_name, top=8)
+    peak = torch.cuda.max_memory_allocated()
+    valid = int((hg.edge_src >= 0).sum())
+    flops = 4 * cfg.n_layers * gnn_edge_flops(cfg, valid)
+    bound_ms = flops / F32_OPS_PER_S * 1e3
+    p50 = float(np.percentile(walls[1:], 50))
+    n_params = sum(t.numel() for t in model.parameters())
+    log(f"[{tag} gnn train] {cfg.name} {cfg.task}, {cfg.n_layers} layers, "
+        f"c={cfg.c}, l_max={cfg.l_max} ({n_params / 1e6:.2f} M f32 "
+        f"parameters), N={hg.node_feat.shape[0]} ({n_real} real), "
+        f"E={hg.edge_src.shape[0]} ({valid} real), edge_chunk "
+        f"{cfg.edge_chunk}: step walls {[round(w, 1) for w in walls]} ms "
+        f"(first: warm-up), p50 {p50:.1f} ms, max {max(walls[1:]):.1f}, "
+        f"{n_real / p50 * 1e3:.0f} nodes/s (bound {bound_ms:.1f} ms: "
+        f"{flops / 1e12:.2f} T edge-path f32 FLOPs at 67 TFLOP/s); losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}; one step's CUDA events: forward "
+        f"{split['forward_ms']:.1f}, backward {split['backward_ms']:.1f}, "
+        f"clip + AdamW {split['update_ms']:.1f} ms; busy "
+        f"{busy['busy_share']}, top {busy['top_kernels_ms']}; peak "
+        f"{peak / 1e9:.2f} GB ({card})")
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"{tag}: peak device memory {peak / 1e9:.2f} GB")
+    out = {"layers": cfg.n_layers, "nodes": hg.node_feat.shape[0],
+           "real_nodes": n_real, "edges": hg.edge_src.shape[0],
+           "real_edges": valid, "params": n_params, "walls_ms": walls,
+           "step_ms_p50": p50, "step_ms_max": max(walls[1:]),
+           "nodes_per_s": n_real / p50 * 1e3, "losses": losses,
+           "grad_norms": norms, "split": split, "busy": busy,
+           "bound_ms": bound_ms, "edge_flops": flops, "peak_bytes": peak}
+    with torch.no_grad():
+        out["checks"] = gnn_properties(model, cfg, g, seed, tag)
+    if tag == "12a":
+        out["backward_check"] = gnn_backward_check(model, cfg, g, seed)
+    del model, state, step, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over want's largest |value|."""
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def gnn_properties(model, cfg, g, seed: int, tag: str) -> dict:
+    """The reference's properties (tests/test_gnn.py) at full width:
+    rotation of ``edge_vec`` by a random R leaves the l = 0 outputs (and
+    energies) unchanged and rotates the l = 1 rows (and forces) with
+    D₁(R); changed padded-edge payloads change nothing; ``edge_chunk``
+    halved gives the same output; two forwards compared bit for bit.
+    Raises after logging every number when a check fails."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import gnn, sh
+
+    gen = np.random.Generator(np.random.Philox(key=seed + 12))
+    Q, _ = np.linalg.qr(gen.normal(size=(3, 3)))
+    if np.linalg.det(Q) < 0:
+        Q[:, 0] *= -1
+    R = torch.from_numpy(Q.astype(np.float32)).to(g.edge_vec.device)
+    D1 = torch.from_numpy(sh.fit_wigner_numpy(1, Q).astype(
+        np.float32)).to(R.device)
+    g_rot = g._replace(edge_vec=g.edge_vec @ R.T)
+    f1 = gnn.forward(model, g, cfg)
+    f1b = gnn.forward(model, g, cfg)
+    f2 = gnn.forward(model, g_rot, cfg)
+    scale = max(float(f1.abs().max()), 1.0)
+    res = {"bit_equal_rerun": bool(torch.equal(f1, f1b)),
+           "rerun_rel_err": _rel_err(f1b, f1),
+           "invariant_err": float((f1[:, 0] - f2[:, 0]).abs().max()) / scale,
+           "equivariant_err": float(
+               (torch.einsum("ij,njc->nic", D1, f1[:, 1:4])
+                - f2[:, 1:4]).abs().max()) / scale}
+    del f1b, f2
+    limits = {"invariant_err": GNN_INVARIANT_TOL,
+              "equivariant_err": GNN_EQUIVARIANT_TOL,
+              "rerun_rel_err": GNN_ORDER_TOL}
+    if cfg.task == "energy_force":
+        e1, F1 = gnn.predict(model, g, cfg)
+        e2, F2 = gnn.predict(model, g_rot, cfg)
+        res["energy_invariant_err"] = float((e1 - e2).abs().max()) / max(
+            float(e1.abs().max()), 1.0)
+        res["force_equivariant_err"] = float(
+            (F1 @ D1.T - F2).abs().max()) / max(float(F1.abs().max()), 1.0)
+        limits["energy_invariant_err"] = GNN_INVARIANT_TOL
+        limits["force_equivariant_err"] = GNN_EQUIVARIANT_TOL
+    pads = g.edge_src < 0
+    if bool(pads.any()):
+        vec = g.edge_vec.clone()
+        vec[pads] = 123.0
+        res["pad_payload_rel_err"] = _rel_err(
+            gnn.forward(model, g._replace(edge_vec=vec), cfg), f1)
+        limits["pad_payload_rel_err"] = GNN_ORDER_TOL
+    half = dataclasses.replace(cfg, edge_chunk=cfg.edge_chunk // 2)
+    res["chunk_halved_rel_err"] = _rel_err(gnn.forward(model, g, half), f1)
+    limits["chunk_halved_rel_err"] = GNN_ORDER_TOL
+    log(f"[{tag} gnn checks] {res} (limits {limits}; pads "
+        f"{int(pads.sum())})")
+    bad = {k: res[k] for k, lim in limits.items() if not res[k] <= lim}
+    if bad:
+        raise AssertionError(f"{tag}: properties fail at full width: {bad}")
+    return res
+
+
+def gnn_backward_check(model, cfg, g, seed: int) -> dict:
+    """12a: the edge loop's gradients (its input and every edge weight) for
+    a random upstream gradient through the autograd.Function
+    (``edge_attention``) against autograd through the reference's form of
+    the loop (``edge_attention_reference``), on layer 0's weights and a
+    random input with every degree filled."""
+    import torch
+
+    from repro_torch.models import gnn
+
+    gen = torch.Generator(device=g.edge_vec.device).manual_seed(seed + 1)
+    N = g.node_feat.shape[0]
+    shape = (N, cfg.k, cfg.c)
+    f = torch.randn(shape, generator=gen, device=gen.device).requires_grad_()
+    up = torch.randn(shape, generator=gen, device=gen.device)
+    names, per_layer = model.layer_weights()
+    lp = gnn._nest(names, [w.detach().requires_grad_()
+                           for w in per_layer[0]])
+    ws = [*lp["so2"].values(), lp["rad1"], lp["rad2"], lp["wa1"],
+          lp["wa2"]]
+    _new_peak()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gnn.edge_attention(f, lp, g, cfg)
+    got = torch.autograd.grad(out, (f, *ws), up)
+    torch.cuda.synchronize()
+    fn_ms = (time.perf_counter() - t0) * 1e3
+    fn_peak = torch.cuda.max_memory_allocated()
+    _new_peak()
+    t0 = time.perf_counter()
+    ref = gnn.edge_attention_reference(f, lp, g, cfg)
+    want = torch.autograd.grad(ref, (f, *ws), up)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref_peak = torch.cuda.max_memory_allocated()
+    errs = {"output": _rel_err(out, ref)}
+    errs.update({k: _rel_err(a, b) for k, a, b in
+                 zip(["f", *names], got, want)})
+    res = {"rel_err": errs, "max_rel_err": max(errs.values()),
+           "function_ms": fn_ms, "reference_form_ms": ref_ms,
+           "function_peak_bytes": fn_peak, "reference_peak_bytes": ref_peak}
+    log(f"[12a gnn backward] autograd.Function vs the reference's form, "
+        f"forward + backward of one layer's edge loop: max rel err "
+        f"{res['max_rel_err']:.3g} ({errs}); {fn_ms:.1f} vs {ref_ms:.1f} "
+        f"ms, peak {fn_peak / 1e9:.2f} vs {ref_peak / 1e9:.2f} GB")
+    if not res["max_rel_err"] <= GNN_ORDER_TOL:
+        raise AssertionError(f"12a: the edge loop's backward differs from "
+                             f"the reference's form: {errs}")
+    del out, ref, got, want, f, up
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def gnn_minibatch(shape: dict, seed: int, dev, card: str) -> dict:
+    """12c: ``minibatch_lg``.  A synthetic graph of Reddit's node count,
+    feature width and classes, each node's in-degree cut to GNN_LG_DEGREE,
+    through the port's ``NeighborSampler`` (``batch_nodes`` seeds, fanout
+    (15, 10), padded to the shape's nodes and edges); ``predict`` at all 12
+    layers without gradients (wall, nodes/s, peak, both bounds; busy share
+    and largest kernels of one layer under torch.profiler); then training
+    at full width with the deepest layer count whose peak (extrapolated
+    from 1- and 2-layer steps) stays under PEAK_MEMORY_MAX."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import equiformer_v2 as eq
+    from repro_torch.data import graph as graphdata
+    from repro_torch.models import gnn
+
+    t0 = time.perf_counter()
+    n, deg = shape["full_nodes"], GNN_LG_DEGREE
+    gen = np.random.Generator(np.random.Philox(key=seed))
+    dst = np.repeat(np.arange(n), deg)
+    src = (dst + gen.integers(1, n, n * deg)) % n       # no self loops
+    feats = gen.standard_normal((n, shape["d_feat"]), dtype=np.float32)
+    labels = gen.integers(0, shape["n_classes"], n).astype(np.int32)
+    sampler = graphdata.NeighborSampler(seed, n, np.stack([src, dst]), feats,
+                                        labels)
+    del src, dst
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seeds = gen.choice(n, shape["batch_nodes"], replace=False)
+    hg = sampler.sample(seeds, shape["fanout"], shape["pad_nodes"],
+                        shape["pad_edges"])
+    sample_s = time.perf_counter() - t0
+    del sampler, feats
+    valid = hg.edge_src >= 0
+    E_real = int(valid.sum())
+    N_real = int(max(hg.edge_src.max(), hg.edge_dst.max())) + 1
+    cfg = eq.full_config(shape)
+    nch = hg.edge_src.shape[0] // gnn._chunk_size(hg.edge_src.shape[0],
+                                                  cfg.edge_chunk)
+    log(f"[12c gnn minibatch_lg] synthetic graph of {n} nodes x "
+        f"{shape['d_feat']} features, in-degree {deg} ({n * deg} edges, cut "
+        f"from {shape['full_edges']}) drawn in {draw_s:.1f}s; "
+        f"{shape['batch_nodes']} seeds at fanout {shape['fanout']} sampled "
+        f"in {sample_s:.1f}s: {N_real} nodes reached, {E_real} edges, padded "
+        f"to {hg.node_feat.shape[0]} / {hg.edge_src.shape[0]} ({nch} chunks "
+        f"of {cfg.edge_chunk})")
+
+    g = graphdata.to_device(hg, dev)
+    _new_peak()
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, device=dev)
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = gnn.predict(model, g, cfg)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ok = (tuple(logits.shape) == (hg.node_feat.shape[0], cfg.n_out)
+              and bool(torch.isfinite(logits).all()))
+        del logits
+    fwd_peak = torch.cuda.max_memory_allocated()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = dataclasses.replace(cfg, n_layers=1)
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            one, device=dev)
+    with torch.no_grad():
+        prof_wall, by_name = device_profile(
+            lambda: gnn.predict(model, g, one), 1)
+    busy = busy_summary(prof_wall, by_name, top=8)
+    del model
+    acc_bytes = hg.node_feat.shape[0] * cfg.k * cfg.c * 4
+    acc_ms = gnn_accumulator_ms(g, cfg)
+    flops = cfg.n_layers * gnn_edge_flops(cfg, E_real)
+    flop_ms = flops / F32_OPS_PER_S * 1e3
+    byte_ms = cfg.n_layers * nch * 2 * acc_bytes / HBM_BYTES_PER_S * 1e3
+    fwd = {"walls_ms": walls, "ms": walls[-1],
+           "nodes_per_s": N_real / walls[-1] * 1e3,
+           "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+           "peak_bytes": fwd_peak, "one_layer_busy": busy,
+           "accumulator_ms_a_chunk": acc_ms,
+           "accumulator_share": cfg.n_layers * nch * sum(acc_ms.values())
+           / walls[-1], "finite": ok}
+    log(f"[12c gnn forward] predict at {cfg.n_layers} layers without "
+        f"gradients: walls {[round(w, 1) for w in walls]} ms (first: "
+        f"warm-up), {fwd['nodes_per_s']:.0f} nodes/s; bounds: FLOPs "
+        f"{flop_ms:.1f} ms ({flops / 1e12:.2f} T at 67 TFLOP/s), bytes "
+        f"{byte_ms:.1f} ms ({cfg.n_layers} x {nch} chunks x 2 x "
+        f"{acc_bytes / 1e9:.2f} GB of accumulator rescaled and summed at "
+        f"3.35 TB/s); the accumulator a chunk: {acc_ms} ms, "
+        f"{fwd['accumulator_share']:.3f} of the forward; one layer under "
+        f"torch.profiler: busy "
+        f"{busy['busy_share']}, {busy['device_ms']} of {prof_wall:.1f} ms, "
+        f"top {busy['top_kernels_ms']}; peak {fwd_peak / 1e9:.2f} GB "
+        f"({card})")
+    if not ok:
+        raise AssertionError("12c: the forward's logits are not finite or "
+                             "not [N, n_out]")
+
+    # the deepest cut: each layer the remat keeps adds its input, so the
+    # peak grows by one 1- to 2-layer step difference a layer
+    probe = {}
+    for layers in (1, 2):
+        _new_peak()
+        m, *_ = gnn_fit(dataclasses.replace(cfg, n_layers=layers), g, seed,
+                        dev, 1)
+        probe[layers] = torch.cuda.max_memory_allocated()
+        del m, _
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_layer = probe[2] - probe[1]
+    room = PEAK_MEMORY_MAX - 1e9 - probe[1]
+    depth = int(min(cfg.n_layers, 1 + room // per_layer))
+    if depth < 1:
+        raise AssertionError(f"12c: one layer's train step peaks at "
+                             f"{probe[1] / 1e9:.2f} GB")
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    _new_peak()
+    model, state, step, opt_cfg, twalls, losses, norms = gnn_fit(
+        cut, g, seed, dev, GNN_LG_TIMED + 1)
+    split = gnn_step_split(model, state, g, cut, opt_cfg)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.percentile(twalls[1:], 50))
+    bound_ms = 4 * depth * gnn_edge_flops(cfg, E_real) / F32_OPS_PER_S * 1e3
+    train = {"layers": depth, "probe_peak_bytes": probe,
+             "walls_ms": twalls, "step_ms_p50": p50,
+             "nodes_per_s": N_real / p50 * 1e3, "losses": losses,
+             "grad_norms": norms, "split": split, "bound_ms": bound_ms,
+             "peak_bytes": peak}
+    log(f"[12c gnn train] {depth} of {cfg.n_layers} layers at full width "
+        f"(peaks at 1 / 2 layers {probe[1] / 1e9:.2f} / "
+        f"{probe[2] / 1e9:.2f} GB): step walls "
+        f"{[round(w, 1) for w in twalls]} ms (first: warm-up), p50 "
+        f"{p50:.1f} ms (bound {bound_ms:.1f} ms), losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}; one step's CUDA events: forward "
+        f"{split['forward_ms']:.1f}, backward {split['backward_ms']:.1f}, "
+        f"clip + AdamW {split['update_ms']:.1f} ms; peak {peak / 1e9:.2f} "
+        f"GB ({card})")
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"12c: peak device memory {peak / 1e9:.2f} GB")
+    del model, state, step, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"full_nodes": n, "in_degree": deg, "draw_s": draw_s,
+            "sample_s": sample_s, "nodes": hg.node_feat.shape[0],
+            "real_nodes": N_real, "edges": hg.edge_src.shape[0],
+            "real_edges": E_real, "chunks": nch, "forward": fwd,
+            "train": train}
+
+
+def gnn_accumulator_ms(g, cfg) -> dict:
+    """CUDA-event ms of one chunk's two passes over the streaming softmax's
+    [N, K, H, C/H] accumulator, on its shapes: the rescale (``mul_`` by a
+    per-node, per-head scale) and the scatter of the chunk's weighted
+    messages (``index_add_`` at its first chunk's destinations)."""
+    import torch
+
+    from repro_torch.models import gnn
+
+    N = g.node_feat.shape[0]
+    H = cfg.n_heads
+    acc = torch.zeros((N, cfg.k, H, cfg.c // H), device=g.node_feat.device)
+    scale = torch.ones((N, H), device=acc.device)
+    chunk = gnn._chunk_size(g.edge_src.shape[0], cfg.edge_chunk)
+    dst = g.edge_dst[:chunk].long().clamp_min(0)
+    msg = torch.ones((chunk,) + acc.shape[1:], device=acc.device)
+    out = {"rescale": cuda_ms(lambda: acc.mul_(scale[:, None, :, None]), 5),
+           "scatter": cuda_ms(lambda: acc.index_add_(0, dst, msg), 5)}
+    del acc, msg
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_launcher() -> dict:
+    """12d: ``repro_torch.launch.train --arch equiformer-v2`` on the card:
+    GNN_LAUNCH_STEPS steps with a checkpoint at step 10 under ``build/``,
+    then ``--resume``, which must print ``resumed from step 10``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launcher
+
+    arch = "equiformer-v2"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    scratch = tempfile.mkdtemp(prefix="gnn-12d-", dir=root)
+    t0 = time.perf_counter()
+    runs = []
+    try:
+        for extra in ([], ["--resume"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                launcher.main(["--arch", arch, "--steps",
+                               str(GNN_LAUNCH_STEPS), "--ckpt-dir", scratch,
+                               "--ckpt-every", "10", *extra])
+            runs.append(buf.getvalue().splitlines())
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    first, resumed = runs
+    if not (first and first[0].startswith(f"[{arch}] step    1 loss=")
+            and resumed and resumed[0] == "resumed from step 10"):
+        raise AssertionError(f"12d {arch}: launcher printed {runs}")
+    out = {"wall_s": time.perf_counter() - t0, "lines": first + resumed}
+    log(f"[12d gnn launcher] {arch}: {' | '.join(first + resumed)} "
+        f"({out['wall_s']:.1f}s)")
     return out
 
 

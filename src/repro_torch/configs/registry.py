@@ -1,11 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the launchers, as
 ``repro.configs.registry``.
 
-``ARCHS`` and ``ASSIGNED`` are the reference's.  The port has the configs
-of the LM and recsys families and of ``sinnamon-engine``; :func:`get`
-raises ``NotImplementedError`` naming the ROADMAP item of an arch whose
-model is not ported yet, and :func:`all_cells` yields the cells of the
-ported archs.
+``ARCHS`` and ``ASSIGNED`` are the reference's; every arch's config is
+ported (the LM, GNN and recsys families and ``sinnamon-engine``).
 """
 import importlib
 
@@ -26,25 +23,16 @@ ARCHS = {
 
 ASSIGNED = [a for a in ARCHS if a != "sinnamon-engine"]
 
-#: Archs whose model is not ported yet -> the ROADMAP item that ports it.
-NOT_PORTED = {"equiformer-v2": "ROADMAP.md, Queue 1 item 12: the GNN family"}
-
 
 def get(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
-    if arch in NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet "
-                                  f"({NOT_PORTED[arch]})")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
 
 
 def all_cells(include_extra: bool = False):
-    """(arch, shape name) of every cell of the ported archs, in the
-    reference's order."""
+    """(arch, shape name) of every cell, in the reference's order."""
     names = list(ARCHS) if include_extra else ASSIGNED
     for a in names:
-        if a in NOT_PORTED:
-            continue
         for shape in get(a).SHAPES:
             yield a, shape

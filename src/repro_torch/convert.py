@@ -270,10 +270,10 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def recsys_params_to_numpy(model) -> dict:
-    """The reference's parameter tree of a port model (recsys or LM), as
+    """The reference's parameter tree of a port model (recsys, LM or GNN), as
     nested dicts of host numpy arrays (bf16 leaves as their raw uint16
-    bits); the inverse of :func:`recsys_params_from_numpy` and
-    :func:`lm_params_from_numpy`."""
+    bits); the inverse of :func:`recsys_params_from_numpy`,
+    :func:`lm_params_from_numpy` and :func:`gnn_params_from_numpy`."""
     return unflatten_tree({k: _host(t) for k, t in model.leaves().items()})
 
 
@@ -296,6 +296,25 @@ def lm_params_from_numpy(params: dict, cfg, device=None):
 
 #: An LM's parameter tree: the same flattening of ``leaves()``.
 lm_params_to_numpy = recsys_params_to_numpy
+
+
+def gnn_params_from_numpy(params: dict, cfg, device=None):
+    """The port's :class:`repro_torch.models.gnn.EquiformerV2` holding the
+    reference's GNN parameter tree (``embed_in``, ``layers/...``, ``ro1``,
+    ``ro2``, ``force_w``; numpy arrays, or anything ``np.asarray`` reads)
+    bit for bit, on ``device`` (None: the CUDA card), in the leaves' dtype
+    (bfloat16 for 2-byte leaves, float32 otherwise)."""
+    from repro_torch.models import gnn
+    flat = flatten_tree(params)
+    wide = np.asarray(flat["embed_in"]).dtype.itemsize
+    dtype = {2: torch.bfloat16, 4: torch.float32}[wide]
+    model = gnn.EquiformerV2(cfg, dtype=dtype, device=device, draw=False)
+    _load(model.leaves(), flat, cfg.name)
+    return model
+
+
+#: A GNN's parameter tree: the same flattening of ``leaves()``.
+gnn_params_to_numpy = recsys_params_to_numpy
 
 
 def _state_leaves(state) -> dict:

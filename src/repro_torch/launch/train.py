@@ -1,6 +1,6 @@
 """Training launcher with checkpoint auto-resume, as
-``repro.launch.train``: the LM and recsys families' smoke configs, end to
-end.
+``repro.launch.train``: the LM, GNN and recsys families' smoke configs, end
+to end.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec \
         --steps 50 [--ckpt-dir /tmp/ck] [--ckpt-every 25] [--resume] \
@@ -10,12 +10,13 @@ Prints the reference's lines (``[arch] step N loss=... |g|=...`` at the
 first step and every 10th, ``resumed from step N``).  Batches are the
 reference's draws: ``repro_torch.data.loaders.lm_batch(0, step,
 4·microbatches, 64, cfg.vocab)`` for the LM family (loss ``lm_loss``),
-``recsys_batch(0, step, 8·microbatches, cfg)`` for the recsys family; the
+``recsys_batch(0, step, 8·microbatches, cfg)`` for the recsys family, and
+for the GNN family one graph, ``random_geometric_graph(0, 64, 256,
+cfg.f_in, cfg.n_out)``, every step (loss ``loss_fn``, one microbatch); the
 f32 weights are drawn from seed 0 on ``--device`` (None: the CUDA card).
 Checkpoints are train states in the reference's layout
 (``repro_torch.convert.train_state_to_numpy``), so either launcher resumes
-the other's.  The GNN archs are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+the other's.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from repro_torch import convert
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import registry
 from repro_torch.core.engine import resolve_device
+from repro_torch.data import graph as graphdata
 from repro_torch.data import loaders
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tr
 from repro_torch.optim import adamw
 from repro_torch.train import loop
@@ -39,7 +41,7 @@ def build(arch: str, microbatches: int, device=None):
     """(params, loss_fn, batch_at, microbatches) of ``arch``'s smoke
     config on ``device``."""
     mod = registry.get(arch)
-    if mod.FAMILY not in ("lm", "recsys"):
+    if mod.FAMILY not in ("lm", "recsys", "gnn"):
         raise ValueError(f"{arch}: use repro_torch.launch.serve for "
                          f"retrieval")
     dev = resolve_device(device)
@@ -54,7 +56,7 @@ def build(arch: str, microbatches: int, device=None):
         def batch_at(step):
             return loaders.lm_batch(0, step, 4 * microbatches, 64, cfg.vocab,
                                     device=dev)
-    else:
+    elif mod.FAMILY == "recsys":
         params = recsys.init_params(gen, cfg, device=dev)
 
         def loss_fn(p, b):
@@ -63,6 +65,17 @@ def build(arch: str, microbatches: int, device=None):
         def batch_at(step):
             return loaders.recsys_batch(0, step, 8 * microbatches, cfg,
                                         device=dev)
+    else:
+        params = gnn.init_params(gen, cfg, device=dev)
+        g = graphdata.to_device(graphdata.random_geometric_graph(
+            0, 64, 256, cfg.f_in, cfg.n_out), dev)
+
+        def loss_fn(p, b):
+            return gnn.loss_fn(p, b, cfg)
+
+        def batch_at(step):
+            return g
+        microbatches = 1
 
     return params, loss_fn, batch_at, microbatches
 

@@ -1,6 +1,7 @@
 """Models of the port: the LM family (``models.transformer`` over
-``models.layers``) and the recsys family (``models.recsys``: DLRM, DIN,
-SASRec, MIND), served and trained."""
+``models.layers``), the recsys family (``models.recsys``: DLRM, DIN,
+SASRec, MIND), served and trained, and the GNN family (``models.gnn`` over
+``models.sh``: EquiformerV2), trained."""
 
 import torch
 

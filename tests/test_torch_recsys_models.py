@@ -195,7 +195,7 @@ def test_model_and_config_of_different_models_raise():
 
 # -- configs and the registry -------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("equiformer-v2",))
 def test_configs_equal_reference(arch):
     jmod, tmod = jreg.get(arch), treg.get(arch)
     assert (tmod.ARCH, tmod.FAMILY) == (jmod.ARCH, jmod.FAMILY)
@@ -208,21 +208,12 @@ def test_configs_equal_reference(arch):
 def test_registry_matches_reference():
     assert treg.ARCHS == jreg.ARCHS
     assert treg.ASSIGNED == jreg.ASSIGNED
-    ported = [a for a in jreg.ARCHS if a not in treg.NOT_PORTED]
-    assert set(treg.NOT_PORTED) == {"equiformer-v2"}
-    assert sorted(ported) == sorted(["deepseek-67b", "stablelm-12b",
-                                     "gemma3-27b", "llama4-scout-17b-a16e",
-                                     "moonshot-v1-16b-a3b", "sasrec", "mind",
-                                     "din", "dlrm-rm2", "sinnamon-engine"])
-    for arch in ported:
-        assert treg.get(arch).FAMILY == jreg.get(arch).FAMILY
+    for arch in jreg.ARCHS:
+        mod = treg.get(arch)
+        assert mod.__name__.startswith("repro_torch.configs.")
+        assert mod.FAMILY == jreg.get(arch).FAMILY
     for extra in (False, True):
-        assert list(treg.all_cells(extra)) == [
-            c for c in jreg.all_cells(extra) if c[0] in ported]
-    for arch, item in treg.NOT_PORTED.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.get(arch)
-        assert "Queue 1 item 12" in item
+        assert list(treg.all_cells(extra)) == list(jreg.all_cells(extra))
     with pytest.raises(KeyError):
         treg.get("gpt-5")
 
