@@ -206,6 +206,22 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               2-layer steps, stays under 39 GB.  12d: ``launch.train
               --arch equiformer-v2``, 12 steps with a checkpoint under
               ``build/`` at step 10, then ``--resume``.
+13. mesh    — after 12: the mesh tooling.  13a: the dry run
+              (``launch/dryrun.py``) of ``MESH_CELLS`` on the 16x16 and
+              2x16x16 production meshes, one subprocess a cell and mesh
+              (a fake process group of 256 / 512 ranks each), side by
+              side on the host's cores: bytes, FLOPs and collectives a
+              device with H100 constants, and the cells above 80 GB a
+              device.  13b: dlrm-rm2 ``serve_p99`` and ``train_batch``
+              dry-run on a 1x1 mesh against phases 6a and 10a: state bytes
+              equal to the card's exactly, the peak, FLOP and roofline-time
+              ratios printed.  13c: a one-device ``cuda`` mesh (gloo over
+              ``tcp://localhost``, world 1): the mesh search step on a
+              65,536-document index (B=16), the DLRM B=512 forward, a
+              2-layer stablelm decode step and the GNN ``full_graph_sm``
+              forward (``index_add_`` deterministic) bit-equal to
+              ``mesh=None``, launching the same kernels
+              (``launches_mesh``).
 
 Launch counts are read per path: kernel A and B's rerank kernel
 (``csr_rerank_topk``) must launch on the fused path, C and the rerank
@@ -218,8 +234,8 @@ durable index; A and the rerank kernel once a shard per batch
 step (``launches_train``, and ``launches`` of the backward's row) on the
 DLRM train steps, no kernel on DIN / SASRec / MIND, the LM path
 (``launches_lm``) or the GNN path (``launches_gnn``).  Ends with JSON
-lines of the recsys, durability, front-door, tiered, sharded, train, lm
-and gnn numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
+lines of the recsys, durability, front-door, tiered, sharded, train, lm,
+gnn and mesh numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
 directory without the package.
@@ -228,6 +244,7 @@ directory without the package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -732,6 +749,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gnn_line, gnn_counts = gnn_path(args.seed, dev, card)
+
+    # -- 13. the mesh tooling: dry run on the host, 1x1 mesh on the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_line, mesh_counts = mesh_path(args.seed, dev, card, recsys_line,
+                                       train_line, cdf)
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
@@ -740,6 +763,7 @@ def main(argv=None) -> int:
         row["launches_train"] = train_counts[row["name"]]
         row["launches_lm"] = lm_counts[row["name"]]
         row["launches_gnn"] = gnn_counts[row["name"]]
+        row["launches_mesh"] = mesh_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -755,6 +779,7 @@ def main(argv=None) -> int:
     print(json.dumps({"train": train_line}), flush=True)
     print(json.dumps({"lm": lm_line}), flush=True)
     print(json.dumps({"gnn": gnn_line}), flush=True)
+    print(json.dumps({"mesh": mesh_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4057,7 +4082,7 @@ def kernel_d_times(model, cfg, host_batch, on_card, counts, card):
         f_ms = cuda_ms(lambda: recsys.score(model, b, cfg), max(3, reps // 4))
         fwd[name] = {"forward_ms": f_ms, "flop_bound_ms":
                      dlrm_flops(cfg, B) / F32_OPS_PER_S * 1e3}
-        if name == "serve_bulk":
+        if name in ("serve_bulk", "serve_p99"):
             torch.cuda.synchronize()
             resident = torch.cuda.memory_allocated()
             _PEAK_BEFORE_RESET[0] = max(_PEAK_BEFORE_RESET[0],
@@ -4631,6 +4656,296 @@ def exact_small_index(open_index, IndexConfig, QueryServer, ops, vecstore,
     if not ok:
         raise AssertionError("small index: answer != exact top-k")
     return ok
+
+
+# -- 13. the mesh tooling ------------------------------------------------------
+
+#: the dry run's cells on the card's host (13a), each on both meshes
+MESH_CELLS = (("stablelm-12b", "train_4k"), ("deepseek-67b", "decode_32k"),
+              ("moonshot-v1-16b-a3b", "train_4k"), ("dlrm-rm2", "train_batch"),
+              ("sinnamon-engine", "serve_msmarco"))
+CARD_BYTES = 80e9                  # the H100's device memory
+MESH_DOCS = 65_536                 # 13c: the index the mesh step searches
+MESH_LM_LAYERS = 2                 # 13c: stablelm layers of the decode step
+MESH_LM_CACHE = 4_096              # 13c: cache positions of the decode step
+PEAK_BF16_NOTE = ("989 TFLOP/s bf16 dense, 67 TFLOP/s f32, 3.35 TB/s HBM, "
+                  "50 GB/s a device for collectives (NDR InfiniBand)")
+
+_DRYRUN_CELL = r"""
+import json, sys
+from repro_torch.launch import dryrun
+res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1")
+print("JSON" + json.dumps(res))
+"""
+
+_DRYRUN_1X1 = r"""
+import json
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.distributed import mesh as meshlib
+from repro_torch.launch import cells, dryrun
+
+out = {}
+for shape in ("serve_p99", "train_batch"):
+    with dryrun.fake_world(1):
+        mesh = meshlib.make_mesh((1, 1), ("data", "model"), "cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            b = cells.build("dlrm-rm2", shape, mesh)
+            st = b.args[0]
+            leaves = (list(st.params.leaves().values()) + list(
+                st.opt.m.values()) + list(st.opt.v.values())
+                if shape == "train_batch" else list(st.leaves().values()))
+            state = sum(t.numel() * t.element_size() for t in leaves)
+            fig = dryrun.measure(b.fn, b.args)
+    out[shape] = dict(fig, state_bytes=state)
+print("JSON" + json.dumps(out))
+"""
+
+
+def _json_of(stdout: str) -> dict:
+    lines = [x for x in stdout.splitlines() if x.startswith("JSON")]
+    if not lines:
+        raise AssertionError("a dry-run subprocess printed no result")
+    return json.loads(lines[-1][4:])
+
+
+def mesh_path(seed: int, dev, card: str, recsys_line: dict,
+              train_line: dict, cdf):
+    """Phase 13: 13a the dry run of ``MESH_CELLS`` on both production
+    meshes (a fake process group of 256 / 512 ranks, one subprocess a cell
+    and mesh, run side by side on the host's cores); 13b dlrm-rm2's
+    ``serve_p99`` and ``train_batch`` dry-run on a 1x1 mesh against what
+    phases 6a and 10a measured; 13c a one-device ``cuda`` mesh on the
+    card: the mesh search step, a DLRM forward, a 2-layer stablelm decode
+    step and a GNN forward bit-equal to ``mesh=None`` with the same
+    launches.  Returns (the mesh JSON line, the launch counts of 13c's
+    mesh runs)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    jobs = [((arch, shape, mp), subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CELL, arch, shape, "1" if mp else "0"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, shape in MESH_CELLS for mp in (False, True)]
+    one = subprocess.Popen([sys.executable, "-c", _DRYRUN_1X1], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        line13c, counts = mesh_on_card(seed, dev, cdf)
+        out, err = one.communicate(timeout=600)
+        if one.returncode:
+            raise AssertionError(f"13b dry run failed: {err[-2000:]}")
+        dry = _json_of(out)
+        line13b = mesh_against_card(dry, recsys_line, train_line, card)
+        results = []
+        for (arch, shape, mp), job in jobs:
+            out, err = job.communicate(timeout=900)
+            tag = f"{arch}/{shape}/{'2x16x16' if mp else '16x16'}"
+            if job.returncode:
+                log(f"[13a mesh] [FAIL] {tag}: {err[-1500:]}")
+                raise AssertionError(f"13a: the dry run of {tag} failed")
+            res = _json_of(out)
+            results.append(res)
+            log(f"[13a mesh] [OK] {tag}: {res['bytes_per_device']} B a "
+                f"device ({res['arg_bytes']} arguments + "
+                f"{res['temp_bytes']} temporaries), "
+                f"{res['hlo_flops_per_device']:.4g} FLOPs, "
+                f"{res['collectives']['count']} collectives "
+                f"({res['collectives']['counts']}) of "
+                f"{res['collective_bytes_per_device']} B; t = "
+                f"{res['t_compute']:.4g} / {res['t_memory']:.4g} / "
+                f"{res['t_collective']:.4g} s, {res['bottleneck']}-bound; "
+                f"traced in {res['trace_s']} s"
+                + (f" (depth extrapolated from {res['depth']['traced']})"
+                   if (res.get('depth') or {}).get('extrapolated') else ""))
+    finally:
+        for _, job in jobs:
+            if job.poll() is None:
+                job.kill()
+        if one.poll() is None:
+            one.kill()
+    over = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in results
+            if r["bytes_per_device"] > CARD_BYTES]
+    log(f"[13a mesh] H100 constants: {PEAK_BF16_NOTE}; cells above the "
+        f"card's {CARD_BYTES / 1e9:.0f} GB a device: {over or 'none'} "
+        f"({card})")
+    line = {"card": card, "dryrun": results, "over_80GB": over,
+            "vs_card": line13b, "one_device": line13c,
+            "wall_s": time.perf_counter() - t_phase}
+    log(f"[13 mesh] phase {line['wall_s']:.1f}s")
+    return line, counts
+
+
+
+def mesh_against_card(dry: dict, recsys_line: dict, train_line: dict,
+                      card: str) -> dict:
+    """13b: the 1x1 dry run's figures against phases 6a and 10a."""
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.launch import dryrun
+
+    cfg = dlrm_rm2.full_config()
+    p99, tr = recsys_line["serve_p99"], train_line["dlrm"]
+    card_nums = {
+        "serve_p99": {"state_bytes": recsys_line["table_bytes"]
+                      + recsys_line["mlp_bytes"],
+                      "peak_bytes": p99["forward_alloc_bytes"],
+                      "flops": dlrm_flops(cfg, p99["batch"]),
+                      "ms": p99["forward_ms"]},
+        "train_batch": {"state_bytes": tr["state_bytes"],
+                        "peak_bytes": tr["peak_bytes"],
+                        "flops": 3 * dlrm_flops(cfg, tr["batch"]),
+                        "ms": tr["step_p50_ms"]}}
+    out = {}
+    for shape, c in card_nums.items():
+        d = dry[shape]
+        if d["state_bytes"] != c["state_bytes"]:
+            raise AssertionError(f"13b {shape}: dry-run state bytes "
+                                 f"{d['state_bytes']} != the card's "
+                                 f"{c['state_bytes']}")
+        # serving: the forward's allocations above what is resident; the
+        # train step: its whole peak (state, batch and temporaries)
+        pred_peak = d["temp_bytes"] if shape == "serve_p99" else \
+            d["arg_bytes"] + d["temp_bytes"]
+        # f32 FLOPs at the f32 peak (dlrm-rm2 runs in f32, TF32 off)
+        t_roof = max(dryrun.compute_time(d), d["bytes"] / dryrun.HBM_BW)
+        r = {"state_bytes": d["state_bytes"], "card_state_bytes":
+             c["state_bytes"], "peak_pred": pred_peak,
+             "peak_card": c["peak_bytes"],
+             "peak_ratio": pred_peak / c["peak_bytes"],
+             "flops_pred": d["flops"], "flops_model": c["flops"],
+             "flops_ratio": d["flops"] / c["flops"],
+             "roofline_ms": t_roof * 1e3, "card_ms": c["ms"],
+             "time_ratio": t_roof * 1e3 / c["ms"],
+             "bytes_moved_pred": d["bytes"]}
+        out[shape] = r
+        log(f"[13b mesh] dlrm-rm2/{shape} on a 1x1 mesh: state "
+            f"{r['state_bytes']} B == the card's; peak predicted "
+            f"{pred_peak} B vs the card's {c['peak_bytes']} B (x"
+            f"{r['peak_ratio']:.3f}); FLOPs {d['flops']} vs the model's "
+            f"{c['flops']} (x{r['flops_ratio']:.3f}); roofline "
+            f"{r['roofline_ms']:.4f} ms vs {c['ms']:.4f} ms measured (x"
+            f"{r['time_ratio']:.3f}) ({card})")
+    return out
+
+
+def mesh_on_card(seed: int, dev, cdf):
+    """13c: a one-device ``cuda`` mesh (a process group of one rank over
+    ``tcp://localhost``); each path with ``mesh`` must give ``mesh=None``'s
+    answer bit for bit and launch the same kernels.  Returns (the line,
+    the launch counts of the mesh runs)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.kernels as kernels
+    from repro_torch.api import IndexConfig, open_index
+    from repro_torch.configs import common
+    from repro_torch.configs import dlrm_rm2, equiformer_v2, stablelm_12b
+    from repro_torch.data import graph as graphdata
+    from repro_torch.data import loaders
+    from repro_torch.distributed import mesh as meshlib
+    from repro_torch.models import gnn, recsys
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import sharded
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    line, mesh_counts = {}, {}
+
+    def twice(name, plain, meshed, same):
+        kernels.reset_launch_counts()
+        a = plain()
+        torch.cuda.synchronize()
+        c0 = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        b = meshed()
+        torch.cuda.synchronize()
+        c1 = kernels.launch_counts()
+        if c0 != c1:
+            raise AssertionError(f"13c {name}: launches {c1} with the mesh, "
+                                 f"{c0} without")
+        if not same(a, b):
+            raise AssertionError(f"13c {name}: the 1x1 mesh's answer != "
+                                 "mesh=None's")
+        for k, n in c1.items():
+            mesh_counts[k] = mesh_counts.get(k, 0) + n
+        line[name] = {"bit_equal": True, "launches": c1}
+        log(f"[13c mesh] {name}: bit-equal to mesh=None, launches {c1}")
+
+    eq = lambda x, y: torch.equal(x, y)                      # noqa: E731
+    try:
+        mesh = meshlib.single_device_mesh(("data", "model"), "cuda")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        # the fused search through the mesh step vs the index's own
+        idx, val = draw_sparse(gen, MESH_DOCS, PSI_DOC, P, cdf, dev)
+        qi, qv = draw_sparse(gen, 16, PSI_QUERY, Q_PAD, cdf, dev)
+        index = open_index(IndexConfig(n=N, capacity=MESH_DOCS, m=M, h=H,
+                                       max_nnz=P), device=dev)
+        index.insert_many(range(MESH_DOCS), idx, val)
+        step = sharded.make_search_step(mesh, index.spec, k=K,
+                                        kprime_local=KPRIME)
+        twice("search B=16",
+              lambda: index.search_many(qi, qv, K, kprime=KPRIME),
+              lambda: step(index.state, qi, qv),
+              lambda a, b: (np.array_equal(a[0], b[1].cpu().numpy())
+                            and np.array_equal(
+                                np.asarray(a[1]).view(np.int32),
+                                b[0].cpu().numpy().view(np.int32))))
+        del index, idx, val
+        # DLRM at full width, B=512
+        cfg = dlrm_rm2.full_config()
+        model = recsys.DLRM(cfg, generator=gen, device=dev)
+        hb = loaders.recsys_batch(seed, 0, 512, cfg, device="cpu")
+        b = hb._replace(dense=hb.dense.to(dev), sparse=hb.sparse.to(dev))
+        twice("dlrm forward B=512", lambda: recsys.score(model, b, cfg),
+              lambda: recsys.score(model, b, cfg, mesh=mesh), eq)
+        del model, b
+        torch.cuda.empty_cache()
+        # stablelm-12b at full width, 2 layers: one decode step
+        lcfg = dataclasses.replace(stablelm_12b.full_config(),
+                                   n_layers=MESH_LM_LAYERS)
+        lm = tr.init_params(gen, lcfg, dtype=torch.bfloat16, device=dev)
+        tok = torch.randint(0, lcfg.vocab, (1, 1), generator=gen, device=dev)
+        caches = [tr.init_cache(lcfg, 1, MESH_LM_CACHE, device=dev)
+                  for _ in range(2)]
+        twice("stablelm decode step (2 layers)",
+              lambda: tr.decode_step(lm, caches[0], tok, 100, lcfg)[0],
+              lambda: tr.decode_step(lm, caches[1], tok, 100, lcfg,
+                                     mesh=mesh)[0],
+              lambda a, b: eq(a, b) and eq(caches[0]["k"], caches[1]["k"]))
+        del lm, caches
+        torch.cuda.empty_cache()
+        # the GNN's full_graph_sm forward at full width and depth
+        sm = common.GNN_SHAPES["full_graph_sm"]
+        hg = graphdata.random_geometric_graph(
+            seed, sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+            sm["n_classes"], sm["pad_nodes"], sm["pad_edges"])
+        g = graphdata.to_device(hg, dev)
+        gcfg = equiformer_v2.full_config(sm)
+        net = gnn.init_params(gen, gcfg, device=dev)
+        # index_add_'s atomics make no two plain forwards bit-equal;
+        # its deterministic form (sorted) makes the comparison exact
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.no_grad():
+                twice("gnn full_graph_sm forward (deterministic index_add_)",
+                      lambda: gnn.forward(net, g, gcfg),
+                      lambda: gnn.forward(net, g, gcfg, mesh=mesh), eq)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        del net, g
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for k in kernels.launch_counts():
+        mesh_counts.setdefault(k, 0)
+    return line, mesh_counts
 
 
 if __name__ == "__main__":

@@ -314,13 +314,14 @@ def embed_bag_backward_plain(grad_bags: Tensor, indices: Tensor, V: int,
     if weights is not None:
         src = src * weights.reshape(B, F, hot, 1)
     offs = torch.arange(F, device=indices.device)[None, :, None] * V
+    # a pad adds into a spare last row (no data-dependent shapes, so the
+    # twin also runs on meta and fake tensors)
     rows = torch.where(indices.reshape(B, F, hot) >= 0,
-                       indices.reshape(B, F, hot).long() + offs, -1)
-    rows = rows.reshape(-1)
-    keep = rows >= 0
-    out = torch.zeros((F * V, D), dtype=torch.float32,
+                       indices.reshape(B, F, hot).long() + offs, F * V)
+    out = torch.zeros((F * V + 1, D), dtype=torch.float32,
                       device=grad_bags.device)
-    out.index_add_(0, rows[keep], src.reshape(-1, D)[keep])
+    out.index_add_(0, rows.reshape(-1), src.reshape(-1, D))
+    out = out[:F * V]
     return out.view(F, V, D) if stacked else out
 
 

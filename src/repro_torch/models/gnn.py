@@ -25,10 +25,15 @@ reference's; the f32 sums run in another order.
 Feature layout: [N, (l_max+1)², C] real spherical-harmonic coefficients,
 degree-l block at rows l²..(l+1)², orders m = −l..l.  The parameters are
 an :class:`EquiformerV2` holding the reference's stacked leaves ``[L, ...]``
-under its names; ``leaves()`` keys them by the reference's paths.  The
-mesh tooling (``graph_logical_axes``, ``abstract_params``,
-``logical_axes`` and the ``mesh`` / ``rules`` arguments) waits for the mesh
-slice.
+under its names; ``leaves()`` keys them by the reference's paths.
+
+The mesh tooling's shape work is the reference's: ``graph_logical_axes``,
+``abstract_params`` (the model on ``meta``) and ``logical_axes``.  The
+entry points take the reference's ``mesh`` / ``rules`` and constrain at its
+points (identities on a one-device mesh); the sharded model on a mesh of
+more than one device is ``models/gnn_sharded.py``, which waits for
+ROADMAP.md Queue 1 item 12b, so such a mesh raises
+``rules.WaitsFor12b`` (a ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from torch.nn.functional import silu
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed import rules as R
+from repro_torch.distributed.rules import L
 from repro_torch.models import sh, tree_leaves
 
 Tensor = torch.Tensor
@@ -84,6 +91,16 @@ class GraphBatch(NamedTuple):
     forces: Tensor       # f32[N, 3] (energy_force) or zeros
     graph_id: Tensor     # int32[N]  molecule id for batched small graphs
     n_graphs: int = 1
+
+
+def graph_logical_axes() -> GraphBatch:
+    return GraphBatch(
+        node_feat=L("nodes", None),      # "nodes" rule = replicated
+        edge_src=L("edges"), edge_dst=L("edges"),
+        edge_vec=L("edges", None),
+        labels=L("nodes"), forces=L("nodes", None),
+        graph_id=L("nodes"), n_graphs=None,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +210,39 @@ class EquiformerV2(nn.Module):
                  if k.startswith("layers/")}
         names = list(named)
         return names, list(zip(*(named[k].unbind(0) for k in names)))
+
+
+def abstract_params(cfg: GNNConfig, dtype=torch.float32) -> EquiformerV2:
+    """The model on ``meta``: the reference's shapes and dtypes, nothing
+    allocated."""
+    return EquiformerV2(cfg, dtype=dtype, device="meta", draw=False)
+
+
+def logical_axes(cfg: GNNConfig) -> dict:
+    """The reference's logical axes of every leaf (nested dict of ``L``)."""
+    so2 = {"w0": L(None, None, "mlp")}
+    for m in range(1, cfg.m_max + 1):
+        so2[f"w{m}r"] = L(None, None, "mlp")
+        so2[f"w{m}i"] = L(None, None, "mlp")
+    layers = {
+        "so2": so2,
+        "rad1": L(None, None, None), "rad2": L(None, None, None),
+        "wa1": L(None, None, None), "wa2": L(None, None, None),
+        "w_out": L(None, None, None, "mlp"),
+        "gate": L(None, None, "mlp"),
+        "ln": L(None, None, None),
+    }
+    return {"embed_in": L(None, None), "layers": layers,
+            "ro1": L(None, None), "ro2": L(None, None),
+            "force_w": L(None, None)}
+
+
+def _check_mesh(mesh) -> None:
+    if R.mesh_size(mesh) > 1:
+        raise R.WaitsFor12b(
+            "the GNN on a mesh of more than one device is the sharded GNN "
+            "(models/gnn_sharded.py), which waits for ROADMAP.md Queue 1 "
+            "item 12b")
 
 
 def init_params(generator, cfg: GNNConfig, dtype=torch.float32,
@@ -341,12 +391,13 @@ class _EdgeLoop(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, f, plan, *weights):
-        g, cfg, names = plan
+        g, cfg, names, mesh, rules = plan
         N, K, C = f.shape
         lp = _nest(names, weights)
         M, Z, acc = _softmax_state(f, cfg)
         for valid, s_src, s_dst, vec in _edge_chunks(g, cfg):
-            logits, msg = _edge_terms(f[s_src], vec, valid, lp, cfg)
+            fs = R.constrain(f[s_src], mesh, ("edges", None, "gnn_c"), rules)
+            logits, msg = _edge_terms(fs, vec, valid, lp, cfg)
             M_new = _new_max(M, logits, s_dst)
             scale = torch.exp(torch.clamp_max(M - M_new, 0.0))
             p = torch.where(valid[:, None],
@@ -354,6 +405,8 @@ class _EdgeLoop(torch.autograd.Function):
             Z.mul_(scale).index_add_(0, s_dst, p)
             acc.mul_(scale[:, None, :, None]).index_add_(
                 0, s_dst, msg.mul_(p[:, None, :, None]))
+            # node accumulators: node axis replicated, channels sharded
+            acc = R.constrain(acc, mesh, (None, None, None, "gnn_c"), rules)
             M = M_new
             del logits, msg, p
         out = acc.div_(torch.clamp_min(Z, 1e-30)[:, None, :, None])
@@ -365,7 +418,7 @@ class _EdgeLoop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         f, M, Z, out, *weights = ctx.saved_tensors
-        g, cfg, names = ctx.plan
+        g, cfg, names, _, _ = ctx.plan
         N, K, C = f.shape
         H = cfg.n_heads
         G = d_out.reshape(N, K, H, C // H)
@@ -401,12 +454,12 @@ class _EdgeLoop(torch.autograd.Function):
 
 
 def edge_attention(f: Tensor, lp: dict, g: GraphBatch,
-                   cfg: GNNConfig) -> Tensor:
+                   cfg: GNNConfig, mesh=None, rules=None) -> Tensor:
     """The layer's attention output [N, K, C]: ``acc / max(Z, 1e-30)`` of
     the streaming segment softmax, through :class:`_EdgeLoop`."""
     names = [f"so2/{k}" for k in lp["so2"]] + ["rad1", "rad2", "wa1", "wa2"]
     ws = [*lp["so2"].values(), lp["rad1"], lp["rad2"], lp["wa1"], lp["wa2"]]
-    return _EdgeLoop.apply(f, (g, cfg, names), *ws)
+    return _EdgeLoop.apply(f, (g, cfg, names, mesh, rules), *ws)
 
 
 def edge_attention_reference(f: Tensor, lp: dict, g: GraphBatch,
@@ -432,10 +485,11 @@ def edge_attention_reference(f: Tensor, lp: dict, g: GraphBatch,
         N, K, C)
 
 
-def mp_layer(lp: dict, f: Tensor, g: GraphBatch, cfg: GNNConfig) -> Tensor:
+def mp_layer(lp: dict, f: Tensor, g: GraphBatch, cfg: GNNConfig,
+             mesh=None, rules=None) -> Tensor:
     """One message-passing block with streaming segment softmax."""
     N = f.shape[0]
-    out = edge_attention(f, lp, g, cfg)
+    out = edge_attention(f, lp, g, cfg, mesh, rules)
 
     # per-degree output mixing + residual
     f = f + _per_l_linear(out, lp["w_out"], cfg)
@@ -456,7 +510,8 @@ def mp_layer(lp: dict, f: Tensor, g: GraphBatch, cfg: GNNConfig) -> Tensor:
             parts.append(checkpoint(_gated_norm, *args, use_reentrant=False))
         else:
             parts.append(_gated_norm(*args))
-    return torch.cat(parts, dim=1)
+    return R.constrain(torch.cat(parts, dim=1), mesh, (None, None, "gnn_c"),
+                       rules)
 
 
 def _rms_norm(blk: Tensor, scale: Tensor) -> Tensor:
@@ -487,14 +542,16 @@ def _per_l_linear(x: Tensor, w: Tensor, cfg: GNNConfig) -> Tensor:
 # Model
 # ---------------------------------------------------------------------------
 
-def _layer(f, g, cfg, names, *weights):
-    return mp_layer(_nest(names, weights), f, g, cfg)
+def _layer(f, g, cfg, mesh, rules, names, *weights):
+    return mp_layer(_nest(names, weights), f, g, cfg, mesh, rules)
 
 
-def forward(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig) -> Tensor:
+def forward(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig, *,
+            mesh=None, rules=None) -> Tensor:
     """Final node features [N, K, C].  With ``cfg.remat`` and gradients on,
     each layer is recomputed in the backward (``torch.utils.checkpoint``,
     non-reentrant)."""
+    _check_mesh(mesh)
     if cfg.dtype != "float32":
         raise ValueError(f"dtype {cfg.dtype!r}: the streaming softmax's "
                          f"accumulators are float32, as the reference's")
@@ -502,21 +559,23 @@ def forward(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig) -> Tensor:
     f0 = g.node_feat.float() @ params.embed_in
     f = torch.cat([f0[:, None, :], f0.new_zeros(N, cfg.k - 1, cfg.c)],
                   dim=1)
+    f = R.constrain(f, mesh, (None, None, "gnn_c"), rules)
     remat = cfg.remat and torch.is_grad_enabled()
     names, per_layer = params.layer_weights()
     for weights in per_layer:
         if remat:
-            f = checkpoint(_layer, f, g, cfg, names, *weights,
+            f = checkpoint(_layer, f, g, cfg, mesh, rules, names, *weights,
                            use_reentrant=False)
         else:
-            f = _layer(f, g, cfg, names, *weights)
+            f = _layer(f, g, cfg, mesh, rules, names, *weights)
     return f
 
 
-def predict(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig):
+def predict(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig, *,
+            mesh=None, rules=None):
     """Node logits [N, n_out] (node_class), or (energies [G], forces [N,
     3]) (energy_force)."""
-    f = forward(params, g, cfg)
+    f = forward(params, g, cfg, mesh=mesh, rules=rules)
     # copies: a view kept for the backward would keep all of f alive
     inv = f[:, 0, :].clone()
     h = silu(inv @ params.ro1)
@@ -529,16 +588,17 @@ def predict(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig):
     return out                                                  # node logits
 
 
-def loss_fn(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig):
+def loss_fn(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig, *,
+            mesh=None, rules=None):
     """(loss, metrics): energy MSE + 10 · force MSE with {"energy_mse",
     "force_mse"} (energy_force), or the mean cross-entropy over the
     labelled nodes (labels ≥ 0) with {"xent"} (node_class)."""
     if cfg.task == "energy_force":
-        energy, forces = predict(params, g, cfg)
+        energy, forces = predict(params, g, cfg, mesh=mesh, rules=rules)
         le = torch.mean((energy - g.labels.float()) ** 2)
         lf = torch.mean((forces - g.forces) ** 2)
         return le + 10.0 * lf, {"energy_mse": le, "force_mse": lf}
-    logits = predict(params, g, cfg)
+    logits = predict(params, g, cfg, mesh=mesh, rules=rules)
     valid = g.labels >= 0
     labels = torch.where(valid, g.labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)

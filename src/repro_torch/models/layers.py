@@ -18,8 +18,12 @@ to it at each use.  Two places compute the same function another way:
 * :func:`moe_layer` dispatches with index gathers in place of the dense
   ``[G, g, E, cap]`` one-hot einsums: the same slots, drops and gates.
 
-Sharding constraints (the reference's ``mesh`` / ``rules`` arguments) wait
-for the mesh tooling.
+On a mesh (``mesh`` / ``rules``: a ``DeviceMesh`` of more than one device,
+the activations and weights DTensors) the functions pin the reference's
+placements with ``rules.constrain`` at the reference's points, in the
+port's layouts: placements follow the dimension, not its position.  With
+``mesh`` None or of one device every constraint returns its input and the
+functions compute exactly what they compute without one.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import rules as R
 
 Tensor = torch.Tensor
 
@@ -276,6 +282,7 @@ def blockwise_attention(
     q_offset: int = 0,         # absolute position of q[0]
     kv_len=None,               # valid cache length (decode), else Sk
     chunk: int = 512,
+    mesh=None, rules=None,
 ) -> Tensor:
     """Numerically-stable chunked attention with GQA; returns [B, Sq, H, D]
     in q's dtype.
@@ -288,17 +295,39 @@ def blockwise_attention(
     arithmetic; here the rows of a chunk are taken in passes of at most
     :data:`SCORE_BYTES` of scores.  ``window``, ``q_offset`` and ``kv_len``
     are host integers (a 0-d tensor is read once).
+
+    On a mesh of more than one device the KV heads are repeated to the
+    query heads (the reference's per-chunk ``_repeat_kv``; each score is
+    the same product) so that q, k, v carry the reference's ("batch", None,
+    "heads", None) placement, and each device runs the attention on its
+    own block of batch rows and heads (attention mixes neither): its
+    scores are its block of the reference's placement, and the score
+    budget counts that block.
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     chunk = min(chunk, Sk)
     while Sk % chunk != 0:   # the reference's static shapes
         chunk -= 1
+    if R.mesh_size(mesh) > 1:
+        heads = ("batch", None, "heads", None)
+        q = R.constrain(q, mesh, heads, rules)
+        k = R.constrain(_repeat_kv(k, H), mesh, heads, rules)
+        v = R.constrain(_repeat_kv(v, H), mesh, heads, rules)
     lo, hi = _key_bounds(Sq, int(q_offset), causal, window, kv_len)
-    rows_cap = max(1, SCORE_BYTES // (4 * B * H * chunk))
+    Bl, _, Hl, _ = R.local_shape_of(q)
+    rows_cap = max(1, SCORE_BYTES // (4 * Bl * Hl * chunk))
     blocks = list(_attention_blocks(lo, hi, Sk, chunk, rows_cap))
     plan = (blocks, lo, hi, 1.0 / math.sqrt(D))
-    return _BlockwiseAttention.apply(q, k, v, plan)
+    if R.mesh_size(mesh) == 1:
+        return _BlockwiseAttention.apply(q, k, v, plan)
+    from torch.distributed.tensor import DTensor
+
+    out = _BlockwiseAttention.apply(q.to_local(), k.to_local(),
+                                    v.to_local(), plan).contiguous()
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False, shape=q.shape,
+                              stride=q.stride())
 
 
 def decode_attention(
@@ -309,6 +338,7 @@ def decode_attention(
     window=None,
     kv_len=None,               # valid cache entries (<= Sk)
     q_offset: int = 0,         # position of the query token
+    mesh=None, rules=None,
 ) -> Tensor:
     """Attention of a few positions against a KV cache: a grouped softmax
     in f32 (the cache is never repeated).  Only the keys some row keeps are
@@ -317,6 +347,22 @@ def decode_attention(
     B, Sq, H, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
+    if R.mesh_size(mesh) > 1:
+        from torch.distributed.tensor import DTensor, Shard
+
+        # the query heads split like the cache's KV heads (or stay whole)
+        heads = "kv_heads" if R.spec_for(mesh, (KV,), ("kv_heads",),
+                                         rules) else None
+        q = R.constrain(q, mesh, ("batch", None, heads, None), rules)
+        if Shard(2) not in k.placements:
+            # every device holds whole key rows of its batch rows and
+            # heads: the attention runs on its blocks (it mixes neither)
+            out = decode_attention(q.to_local(), k.to_local(), v.to_local(),
+                                   window=window, kv_len=kv_len,
+                                   q_offset=q_offset)
+            return DTensor.from_local(out.contiguous(), q.device_mesh,
+                                      q.placements, run_check=False,
+                                      shape=q.shape, stride=q.stride())
     lo, hi = _key_bounds(Sq, int(q_offset), True, window, kv_len)
     k_lo, k_hi = max(0, int(lo.min())), min(Sk, int(hi.max()))
     if k_lo >= k_hi:
@@ -324,9 +370,14 @@ def decode_attention(
     scale = 1.0 / math.sqrt(D)
     qg = (q.float() * scale).reshape(B, Sq, KV, G, D).permute(0, 2, 1, 3, 4)
     qg = qg.reshape(B, KV, Sq * G, D)
-    kf = k[:, :, k_lo:k_hi].float()                       # [B, KV, n, D]
-    # keys as the rows: cuBLAS takes [n, D] x [D, Sq·G] as a GEMM
-    s = torch.matmul(kf, qg.transpose(-1, -2)).transpose(-1, -2)
+    if (k_lo, k_hi) != (0, Sk):
+        k, v = k[:, :, k_lo:k_hi], v[:, :, k_lo:k_hi]
+    kf = k.float()                                        # [B, KV, n, D]
+    sharded = R.mesh_size(mesh) > 1
+    if sharded:     # the plain products: each DTensor op's placements
+        s = torch.matmul(qg, kf.transpose(-1, -2))        # are then cheap
+    else:           # keys as the rows: cuBLAS takes [n, D] x [D, Sq·G]
+        s = torch.matmul(kf, qg.transpose(-1, -2)).transpose(-1, -2)
     s = s.reshape(B, KV, Sq, G, -1)
     del kf
     if (lo <= k_lo).all() and (hi >= k_hi).all():     # every row keeps all
@@ -337,8 +388,8 @@ def decode_attention(
                      window, kv_len)[None, None, :, None, :]
         s = torch.where(keep, s, NEG_BIG)
         p = torch.where(keep, torch.softmax(s, dim=-1), 0.0)
-    out = _long_matmul(p.view(B, KV, Sq * G, -1),
-                       v[:, :, k_lo:k_hi].float())
+    mm = torch.matmul if sharded else _long_matmul
+    out = mm(p.view(B, KV, Sq * G, -1), v.float())
     out = out.view(B, KV, Sq, G, D).permute(0, 2, 1, 3, 4)
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
@@ -366,12 +417,22 @@ def _long_matmul(p: Tensor, v: Tensor, piece: int = 1024) -> Tensor:
 # MLPs
 # ---------------------------------------------------------------------------
 
-def swiglu_mlp(x: Tensor, wi: Tensor, wg: Tensor, wo: Tensor) -> Tensor:
+def swiglu_mlp(x: Tensor, wi: Tensor, wg: Tensor, wo: Tensor,
+               mesh=None, rules=None) -> Tensor:
     dt = x.dtype
-    g = F.silu(torch.matmul(x, wg.to(dt)))
-    h = torch.matmul(x, wi.to(dt)) * g
+    wi = R.gathered(wi.to(dt), mesh, ("fsdp", "mlp"), rules)
+    wg = R.gathered(wg.to(dt), mesh, ("fsdp", "mlp"), rules)
+    wo = R.gathered(wo.to(dt), mesh, ("mlp", "fsdp"), rules)
+    g = F.silu(torch.matmul(x, wg))
+    h = torch.matmul(x, wi) * g
     del g
-    return torch.matmul(h, wo.to(dt))
+    # dims marked None are replicated: the batch must be named
+    h = R.constrain(h, mesh, ("batch",) + (None,) * (h.ndim - 2) + ("mlp",),
+                    rules)
+    out = torch.matmul(h, wo)
+    # seq-full at the block edge (the layer-end constraint re-shards it)
+    return R.constrain(out, mesh, ("batch",) + (None,) * (out.ndim - 1),
+                       rules)
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +464,7 @@ def moe_layer(
     capacity_factor: float = 1.25,
     group_size: int = 4096,
     stats: Optional[list] = None,
+    mesh=None, rules=None,
 ):
     """Returns (y [B, S, d], aux_loss scalar).
 
@@ -425,43 +487,44 @@ def moe_layer(
         raise ValueError(f"{T} tokens do not split into groups of {g}")
     G = T // g
     dt = x.dtype
-    xt = x.reshape(G, g, d)
+    sharded = R.mesh_size(mesh) > 1
+    # The reference places the tokens ("group", "act_seq", None); on a mesh
+    # the port routes each device's own groups with their tokens whole, the
+    # bookkeeping on the local blocks (groups route independently).
+    xt = R.constrain(x.reshape(G, g, d), mesh, ("group", None, None), rules)
 
-    logits = torch.matmul(xt.float(), router.float())         # [G, g, E]
+    router = R.gathered(router.float(), mesh, ("fsdp", None), rules)
+    logits = torch.matmul(xt.float(), router)                 # [G, g, E]
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = sorted_top_k(probs, top_k)           # [G, g, k]
-    gates = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    xt_l, probs_l = (xt.to_local(), probs.to_local()) if sharded \
+        else (xt, probs)
+    Gl = xt_l.shape[0]
     cap = moe_capacity(g, top_k, E, capacity_factor)
+    top_e, gates, keep, slot, slot_tok, count = _route(probs_l, top_k, cap)
+    xpad = torch.cat([xt_l, xt_l.new_zeros((Gl, 1, d))], dim=1)  # [G, g+1, d]
+    gidx = torch.arange(Gl, device=xt_l.device)[None, :, None]
+    disp = xpad[gidx, slot_tok].view(E, Gl * cap, d)          # [E, G·cap, d]
+    # the reference's ("group", "expert", None, None) [G, E, cap, d], laid
+    # out expert-major with G·cap group-major (split as G splits)
+    grp = "group" if sharded and R.spec_for(mesh, (G,), ("group",),
+                                            rules) else None
+    if sharded:
+        disp = _from_local(disp, xt, 1, (E, G * cap, d))
+    disp = R.constrain(disp, mesh, ("expert", grp, None), rules)
 
-    count = torch.zeros((G, 1, E), dtype=torch.long, device=x.device)
-    pos = torch.empty((G, g, top_k), dtype=torch.long, device=x.device)
-    for r in range(top_k):
-        oh = F.one_hot(top_e[..., r], E)                      # [G, g, E]
-        pos[..., r] = ((torch.cumsum(oh, dim=1) - oh + count) * oh).sum(-1)
-        count = count + oh.sum(dim=1, keepdim=True)
-    keep = pos < cap                                          # [G, g, k]
-
-    # slot -> token (g: the zero row) of each expert and group
-    gi = torch.arange(G, device=x.device)[:, None, None].expand_as(pos)
-    ti = torch.arange(g, device=x.device)[None, :, None].expand_as(pos)
-    slot = (top_e * G + gi) * cap + pos                       # [E, G, cap] flat
-    # a dropped choice writes the spare last entry: no host sync for a
-    # boolean index
-    slot_tok = torch.full((E * G * cap + 1,), g, dtype=torch.long,
-                          device=x.device)
-    slot_tok.scatter_(0, torch.where(keep, slot, E * G * cap).flatten(),
-                      ti.flatten())
-    slot_tok = slot_tok[:-1].view(E, G, cap)
-    xpad = torch.cat([xt, xt.new_zeros((G, 1, d))], dim=1)    # [G, g+1, d]
-    gidx = torch.arange(G, device=x.device)[None, :, None]
-    disp = xpad[gidx, slot_tok].view(E, G * cap, d)           # [E, G·cap, d]
-
-    h = torch.bmm(disp, wi.to(dt))
-    u = torch.bmm(disp, wg.to(dt))
+    wi = R.gathered(wi.to(dt), mesh, ("expert", "fsdp", "mlp"), rules)
+    wg = R.gathered(wg.to(dt), mesh, ("expert", "fsdp", "mlp"), rules)
+    wo = R.gathered(wo.to(dt), mesh, ("expert", "mlp", "fsdp"), rules)
+    h = torch.bmm(disp, wi)
+    u = torch.bmm(disp, wg)
     h = F.silu(u) * h
     del u
-    eo = torch.bmm(h, wo.to(dt)).view(E * G * cap, d)
+    eo = torch.bmm(h, wo)
     del h
+    eo = R.constrain(eo, mesh, ("expert", grp, None), rules)
+    if sharded:     # every expert's rows of this device's groups
+        eo = R.constrain(eo, mesh, (None, grp, None), rules).to_local()
+    eo = eo.view(E * Gl * cap, d)
     # each token's k expert outputs, weighted by its gates in the activation
     # dtype (0 for a dropped choice, which reads slot 0 of expert 0's block)
     rows = eo[torch.where(keep, slot, 0)]                     # [G, g, k, d]
@@ -469,7 +532,11 @@ def moe_layer(
     y = torch.matmul(w[..., None, :], rows)[..., 0, :]
 
     # Switch-style load-balance auxiliary loss.
-    frac_tokens = F.one_hot(top_e[..., 0], E).float().mean(dim=(0, 1))
+    first = F.one_hot(top_e[..., 0], E).float()
+    if sharded:
+        y = _from_local(y, xt, 0, (G, g, d))
+        first = _from_local(first, xt, 0, (G, g, E))
+    frac_tokens = first.mean(dim=(0, 1))
     mean_probs = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac_tokens * mean_probs)
     if stats is not None:
@@ -477,3 +544,51 @@ def moe_layer(
         stats.append({"received": kept.sum(0),
                       "dropped": g * top_k - kept.sum(1)})
     return y.reshape(B, S, d), aux
+
+
+def _route(probs: Tensor, top_k: int, cap: int):
+    """The dispatch bookkeeping of [G, g, E] router probabilities:
+    (top_e, gates, keep [G, g, k], slot [G, g, k] into the flat
+    [E, G, cap] blocks, slot_tok [E, G, cap] (g: the zero row), count
+    [G, 1, E])."""
+    G, g, E = probs.shape
+    dev = probs.device
+    top_p, top_e = sorted_top_k(probs, top_k)           # [G, g, k]
+    gates = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+
+    count = torch.zeros((G, 1, E), dtype=torch.long, device=dev)
+    pos = torch.empty((G, g, top_k), dtype=torch.long, device=dev)
+    for r in range(top_k):
+        oh = F.one_hot(top_e[..., r], E)                      # [G, g, E]
+        pos[..., r] = ((torch.cumsum(oh, dim=1) - oh + count) * oh).sum(-1)
+        count = count + oh.sum(dim=1, keepdim=True)
+    keep = pos < cap                                          # [G, g, k]
+
+    # slot -> token (g: the zero row) of each expert and group
+    gi = torch.arange(G, device=dev)[:, None, None].expand_as(pos)
+    ti = torch.arange(g, device=dev)[None, :, None].expand_as(pos)
+    slot = (top_e * G + gi) * cap + pos                       # [E, G, cap] flat
+    # a dropped choice writes the spare last entry: no host sync for a
+    # boolean index
+    slot_tok = torch.full((E * G * cap + 1,), g, dtype=torch.long,
+                          device=dev)
+    slot_tok.scatter_(0, torch.where(keep, slot, E * G * cap).flatten(),
+                      ti.flatten())
+    return top_e, gates, keep, slot, slot_tok[:-1].view(E, G, cap), count
+
+
+def _from_local(t: Tensor, like, dim: int, shape) -> Tensor:
+    """A DTensor of global ``shape`` from this device's block ``t``, whose
+    dimension ``dim`` is split like ``like``'s dimension 0 (the groups)
+    and which is replicated elsewhere (differentiable)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = tuple(Shard(dim) if p == Shard(0) else Replicate()
+               for p in like.placements)
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(t, like.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))

@@ -27,8 +27,17 @@ request's indices as they are and writes each bag straight into the
 :class:`InteractionInput`, whose backward is kernel D's backward kernel.
 DIN, SASRec and MIND gather with ``F.embedding`` (a plain torch gather),
 as the reference leaves its gathers to XLA.  The MLPs, attention and
-interaction stay on ``torch.matmul``.  Mesh sharding
-(``abstract_params``, ``logical_axes``) waits for the mesh slice.
+interaction stay on ``torch.matmul``.
+
+The mesh tooling is the reference's: ``abstract_params`` (the model on
+``meta``), ``logical_axes`` and ``batch_logical_axes``, and the ``mesh`` /
+``rules`` arguments of the entry points, with which they run on DTensors
+(``repro_torch.launch.dryrun``) and pin the reference's placements at its
+points.  On a mesh of more than one device each device sums DLRM's bags
+over the table rows it holds (kernel D, or its twin, on its local block)
+and the partial bags are reduced over the row shards; the Gram pairs are
+picked on each device's batch rows.  With ``mesh`` None or of one device
+nothing changes.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ from torch import nn
 from torch.nn.functional import embedding
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed import rules as R
+from repro_torch.distributed.rules import L
 from repro_torch.kernels import ops
 from repro_torch.models import tree_leaves
 
@@ -82,6 +93,43 @@ class RecsysBatch(NamedTuple):
     hist: Tensor      # int32[B, seq_len]          (din/sasrec/mind; pad = -1)
     target: Tensor    # int32[B]                   target item
     labels: Tensor    # f32[B]                     click labels
+
+
+def batch_logical_axes() -> RecsysBatch:
+    return RecsysBatch(dense=L("batch", None), sparse=L("batch", None, None),
+                       hist=L("batch", None), target=L("batch"),
+                       labels=L("batch"))
+
+
+def _mlp_axes(dims) -> dict:
+    out = {}
+    for i in range(len(dims) - 1):
+        out[f"w{i}"] = L(None, None)
+        out[f"b{i}"] = L(None)
+    return out
+
+
+def logical_axes(cfg: "RecsysConfig") -> dict:
+    """The reference's logical axes of every leaf (nested dict of ``L``)."""
+    if cfg.model == "dlrm":
+        return {"tables": L("fields", "table_rows", None),
+                "bot": _mlp_axes((cfg.n_dense,) + tuple(cfg.bot_mlp)),
+                "top": _mlp_axes((0,) + tuple(cfg.top_mlp))}
+    if cfg.model == "din":
+        return {"table": L("table_rows", None),
+                "attn": _mlp_axes((0,) + tuple(cfg.attn_mlp) + (1,)),
+                "mlp": _mlp_axes((0,) + tuple(cfg.mlp) + (1,))}
+    if cfg.model == "sasrec":
+        blk = {"wq": L(None, None, None), "wk": L(None, None, None),
+               "wv": L(None, None, None), "ln1": L(None, None),
+               "ln2": L(None, None), "f1": L(None, None, None),
+               "f2": L(None, None, None)}
+        return {"table": L("table_rows", None), "pos": L(None, None),
+                "blocks": blk, "ln_f": L(None)}
+    if cfg.model == "mind":
+        return {"table": L("table_rows", None), "bilinear": L(None, None),
+                "b_init": L(None, None)}
+    raise ValueError(f"unknown recsys model {cfg.model!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +256,107 @@ def _normal(shape, gen: torch.Generator, device) -> Tensor:
     return torch.randn(shape, generator=gen, device=device)
 
 
+def _rows(table: Tensor, n: int) -> Tensor:
+    """The first ``n`` rows of ``table`` (the table itself when it has no
+    more: a DTensor sharded by rows then stays as it is placed)."""
+    return table if table.shape[0] == n else table[:n]
+
+
+def _mesh_bags(tables: Tensor, sparse: Tensor,
+               use_kernel: Optional[bool] = None) -> Tensor:
+    """f32 bags [B, F, D] of DTensor tables [F, V, D] sharded by rows, placed
+    like ``sparse``: each device sums, on its own block, the slots that fall
+    in the rows it holds (kernel D's stacked form, or its twin on CPU or
+    fake tensors, every other slot a pad), and the partial bags are summed
+    over the row shards.  Where a mesh dimension splits both the rows and
+    the batch (``pod``), the indices are all-gathered over it and the bags
+    reduce-scattered back; where it splits the rows alone (``model``), the
+    bags are all-reduced.  The local tables' gradient is partial over the
+    mesh dimensions that split the batch but not the rows."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    mesh, pl, spl = tables.device_mesh, tables.placements, sparse.placements
+    rdims = [i for i, p in enumerate(pl) if p == Shard(1)]
+    gdims = [i for i in rdims if spl[i].is_shard()]
+    loc = tables.to_local(grad_placements=tuple(
+        Partial() if p.is_replicate() and spl[i].is_shard() else p
+        for i, p in enumerate(pl)))
+    Vl = loc.shape[1]
+    blk = 0             # the block's index, major to minor in mesh order
+    for i in rdims:
+        blk = blk * mesh.size(i) + mesh.get_local_rank(i)
+    idx = sparse.to_local().to(torch.int32)
+    for i in gdims:
+        idx = funcol.wait_tensor(funcol.all_gather_tensor(idx, 0, (mesh, i)))
+    mine = idx - blk * Vl
+    mine = torch.where((idx >= 0) & (mine >= 0) & (mine < Vl), mine, -1)
+    bags = ops.embed_bag(loc.contiguous(), mine.contiguous(),
+                         use_kernel=use_kernel)                 # f32
+    for i in reversed(gdims):
+        bags = _ReduceScatter.apply(bags, mesh, i)
+    for i in rdims:
+        if i not in gdims:
+            bags = _AllReduce.apply(bags, mesh, i)
+    B, F, D = sparse.shape[0], tables.shape[0], tables.shape[2]
+    return DTensor.from_local(bags, mesh, spl, run_check=False,
+                              shape=torch.Size((B, F, D)),
+                              stride=(F * D, D, 1))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum over mesh dimension ``dim`` and keep this rank's block of rows;
+    the backward all-gathers the rows' gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.group = (mesh, dim)
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            x.contiguous(), "sum", 0, (mesh, dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            g.contiguous(), 0, ctx.group)), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum of partial values over mesh dimension ``dim``, replicated on it;
+    the backward passes the (replicated) gradient to every partial."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", (mesh, dim)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _row_blocks(table: Tensor) -> Tensor:
+    """A DTensor table whose rows split over several mesh dimensions (the
+    ``table_rows`` rule's ``(pod, model)``) gathered to its split over the
+    last of them: DTensor's row-sharded gather handles one such
+    dimension.  A plain tensor as it is."""
+    pl = getattr(table, "placements", None)
+    if pl is None:
+        return table
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = [i for i, p in enumerate(pl) if p == Shard(0)]
+    if len(dims) < 2:
+        return table
+    return table.redistribute(table.device_mesh, tuple(
+        Replicate() if p == Shard(0) and i != dims[-1] else p
+        for i, p in enumerate(pl)))
+
+
 def _take(table: Tensor, idx: Tensor) -> Tensor:
     """``jnp.take(table, idx, axis=0)``: rows of ``table`` at ``idx``.
     ``F.embedding`` and not ``table[idx]``: both gather the same rows, but
@@ -215,7 +364,7 @@ def _take(table: Tensor, idx: Tensor) -> Tensor:
     gradients of one row one after another, and every pad of a history
     (about half its slots) gathers row 0, while the embedding's backward
     sums a row's run of sorted slots in parallel segments."""
-    return embedding(idx.long(), table)
+    return R.settled(embedding(idx.long(), _row_blocks(table)))
 
 
 def _gather(table: Tensor, idx: Tensor) -> Tensor:
@@ -369,7 +518,8 @@ class DLRM(_Recsys):
         return dict(sorted(out.items(), key=lambda kv: kv[0].split("/")))
 
     def interaction_input(self, dense: Tensor, sparse: Tensor, *,
-                          use_kernel: Optional[bool] = None) -> Tensor:
+                          use_kernel: Optional[bool] = None, mesh=None,
+                          rules=None) -> Tensor:
         """vecs [B, n_sparse + 1, D]: the bottom MLP's output x0 in row 0,
         the field bags in rows 1.. .  Kernel path (``use_kernel`` None or
         True): the buffer is allocated once and kernel D writes the bags
@@ -379,6 +529,11 @@ class DLRM(_Recsys):
         x0 and the twin's bags concatenated."""
         tables = self.tables
         dense = dense.to(tables.dtype)
+        if R.mesh_size(mesh) > 1:
+            x0 = _mlp(self.bot, dense, final_act=True)
+            emb = R.constrain(_mesh_bags(tables, sparse, use_kernel), mesh,
+                              ("batch", None, None), rules)
+            return torch.cat([x0[:, None, :], emb.to(tables.dtype)], dim=1)
         if use_kernel is False:
             x0 = _mlp(self.bot, dense, final_act=True)
             emb = stacked_embedding_bag(tables, sparse, use_kernel=False)
@@ -396,40 +551,63 @@ class DLRM(_Recsys):
         return vecs
 
     def features(self, dense: Tensor, sparse: Tensor, *,
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None, mesh=None, rules=None):
         """(x0 [B, D] bottom-MLP output, emb [B, n_sparse, D] field bags):
         views of :meth:`interaction_input`'s rows."""
-        vecs = self.interaction_input(dense, sparse, use_kernel=use_kernel)
+        vecs = self.interaction_input(dense, sparse, use_kernel=use_kernel,
+                                      mesh=mesh, rules=rules)
         return vecs[:, 0], vecs[:, 1:]
 
-    def head(self, vecs: Tensor) -> Tensor:
+    def head(self, vecs: Tensor, mesh=None, rules=None) -> Tensor:
         """CTR logits [B] from the interaction buffer: the top MLP over x0
         and the strict upper triangle (row-major) of the Gram matrix of
         [x0; emb]."""
         gram = torch.bmm(vecs, vecs.transpose(1, 2))
-        inter = gram[:, self.iu, self.ju]                    # [B, F(F+1)/2]
+        if R.mesh_size(mesh) == 1:
+            inter = gram[:, self.iu, self.ju]                # [B, F(F+1)/2]
+        else:
+            # each device picks the pairs of its own batch rows (DTensor's
+            # index ops and their backwards vary between versions)
+            from torch.distributed.tensor import DTensor
+
+            gram = R.constrain(gram, mesh, ("batch", None, None), rules)
+            n = gram.shape[1]
+            iu, ju = torch.triu_indices(n, n, 1, device=gram.device)
+            pairs = gram.to_local()[:, iu, ju]
+            B, P = gram.shape[0], iu.shape[0]
+            inter = DTensor.from_local(pairs, mesh, gram.placements,
+                                       run_check=False,
+                                       shape=torch.Size((B, P)),
+                                       stride=(P, 1))
         return _mlp(self.top, torch.cat([vecs[:, 0], inter], dim=-1))[:, 0]
 
     def forward(self, dense: Tensor, sparse: Tensor, *,
-                use_kernel: Optional[bool] = None) -> Tensor:
+                use_kernel: Optional[bool] = None, mesh=None,
+                rules=None) -> Tensor:
         """CTR logits [B] (:meth:`head` of :meth:`interaction_input`)."""
-        return self.head(self.interaction_input(dense, sparse,
-                                                use_kernel=use_kernel))
+        return self.head(self.interaction_input(
+            dense, sparse, use_kernel=use_kernel, mesh=mesh, rules=rules),
+            mesh, rules)
 
-    def score(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
-        return self(batch.dense, batch.sparse, use_kernel=use_kernel)
+    def score(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+              rules=None) -> Tensor:
+        return self(batch.dense, batch.sparse, use_kernel=use_kernel,
+                    mesh=mesh, rules=rules)
 
-    def loss(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
-        return _bce(self.score(batch, use_kernel), batch.labels)
+    def loss(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
+        return _bce(self.score(batch, use_kernel, mesh, rules), batch.labels)
 
-    def user(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def user(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         """x0 + the mean of the field bags (the two-tower factorisation)."""
         x0, emb = self.features(batch.dense, batch.sparse,
-                                use_kernel=use_kernel)
+                                use_kernel=use_kernel, mesh=mesh,
+                                rules=rules)
         return x0 + emb.mean(dim=1)
 
     def items(self) -> Tensor:
-        return self.tables[0, :self.cfg.n_items]
+        return _rows(self.tables[0], self.cfg.n_items)
 
 
 # ---------------------------------------------------------------------------
@@ -475,22 +653,25 @@ class DIN(_Recsys):
         w = torch.softmax(logits, dim=-1)
         return torch.einsum("bs,bsd->bd", w, eh), et
 
-    def score(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def score(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+              rules=None) -> Tensor:
         u, et = self._user(batch)
         x = torch.cat([u, et], dim=-1)
         return _dense_mlp(self.mlp, x, len(self.cfg.mlp) + 1)[:, 0]
 
-    def loss(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def loss(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         return _bce(self.score(batch), batch.labels)
 
-    def user(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def user(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         """The mean embedding of the valid history."""
         eh = _gather(self.table, batch.hist)
         n = (batch.hist >= 0).sum(-1, keepdim=True).clamp_min(1)
         return eh.sum(1) / n
 
     def items(self) -> Tensor:
-        return self.table[:self.cfg.n_items]
+        return _rows(self.table, self.cfg.n_items)
 
 
 # ---------------------------------------------------------------------------
@@ -556,10 +737,12 @@ class SASRec(_Recsys):
             x = x + torch.relu(h @ bp["f1"]) @ bp["f2"]
         return _ln(x, self.ln_f) * valid[..., None]
 
-    def user(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def user(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         return self.hidden(batch.hist)[:, -1, :]
 
-    def loss(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def loss(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         """Next-item BCE with one uniform negative per position (the
         paper's): positions 0..S-2 predict the items at 1..S-1."""
         hist = batch.hist
@@ -576,7 +759,7 @@ class SASRec(_Recsys):
                 / valid.sum().clamp_min(1))
 
     def items(self) -> Tensor:
-        return self.table[:self.cfg.n_items]
+        return _rows(self.table, self.cfg.n_items)
 
 
 # ---------------------------------------------------------------------------
@@ -626,7 +809,8 @@ class MIND(_Recsys):
             b = b + torch.einsum("bkd,bsd->bks", caps, el)
         return caps
 
-    def loss(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def loss(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         """Label-aware attention + sampled softmax against uniform
         negatives."""
         caps = self.interests(batch.hist)
@@ -643,7 +827,8 @@ class MIND(_Recsys):
         logits = torch.cat([lp[:, None], ln_], dim=1)
         return torch.mean(torch.logsumexp(logits, dim=-1) - lp)
 
-    def user(self, batch: RecsysBatch, use_kernel=None) -> Tensor:
+    def user(self, batch: RecsysBatch, use_kernel=None, mesh=None,
+             rules=None) -> Tensor:
         """The strongest interest (the first on ties)."""
         caps = self.interests(batch.hist)
         norms = torch.sqrt(torch.sum(caps * caps, dim=-1))
@@ -651,7 +836,7 @@ class MIND(_Recsys):
         return caps[torch.arange(caps.shape[0], device=caps.device), best]
 
     def items(self) -> Tensor:
-        return self.table[:self.cfg.n_items]
+        return _rows(self.table, self.cfg.n_items)
 
 
 # ---------------------------------------------------------------------------
@@ -682,35 +867,52 @@ def init_params(generator, cfg: RecsysConfig, dtype: Optional[str] = None,
     return MODELS[cfg.model](cfg, generator=generator, device=device)
 
 
-def _score(params, batch, cfg, use_kernel=None) -> Tensor:
+def abstract_params(cfg: RecsysConfig, dtype: Optional[str] = None):
+    """The model on ``meta``: the reference's shapes and dtypes, nothing
+    allocated (the dry-run path)."""
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown recsys model {cfg.model!r}")
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return MODELS[cfg.model](cfg, device="meta", draw=False)
+
+
+def _score(params, batch, cfg, use_kernel=None, mesh=None,
+           rules=None) -> Tensor:
     m = _check(params, cfg)
     if cfg.model in ("dlrm", "din"):
-        return m.score(batch, use_kernel)
+        return m.score(batch, use_kernel, mesh, rules)
     u = m.user(batch)
-    return torch.einsum("bd,bd->b", u, m.items()[batch.target.long()])
+    target = batch.target.long()
+    et = _take(m.items(), target) if R.mesh_size(mesh) > 1 \
+        else m.items()[target]
+    return torch.einsum("bd,bd->b", u, et)
 
 
 @torch.no_grad()
 def score(params: _Recsys, batch: RecsysBatch, cfg: RecsysConfig, *,
-          use_kernel: Optional[bool] = None) -> Tensor:
+          use_kernel: Optional[bool] = None, mesh=None,
+          rules=None) -> Tensor:
     """Pointwise serving logit [B] (CTR for dlrm/din; u·target for the
     sequence models)."""
-    return _score(params, batch, cfg, use_kernel)
+    return _score(params, batch, cfg, use_kernel, mesh, rules)
 
 
 def loss(params: _Recsys, batch: RecsysBatch, cfg: RecsysConfig, *,
-         use_kernel: Optional[bool] = None) -> Tensor:
+         use_kernel: Optional[bool] = None, mesh=None,
+         rules=None) -> Tensor:
     """The training objective (a 0-d tensor with its autograd graph):
     BCE of the CTR logit for dlrm/din, SASRec's next-item BCE, MIND's
     sampled softmax."""
-    return _check(params, cfg).loss(batch, use_kernel)
+    return _check(params, cfg).loss(batch, use_kernel, mesh, rules)
 
 
 @torch.no_grad()
 def user_repr(params: _Recsys, batch: RecsysBatch, cfg: RecsysConfig, *,
-              use_kernel: Optional[bool] = None) -> Tensor:
+              use_kernel: Optional[bool] = None, mesh=None,
+              rules=None) -> Tensor:
     """[B, D] MIPS query vector for retrieval."""
-    return _check(params, cfg).user(batch, use_kernel)
+    return _check(params, cfg).user(batch, use_kernel, mesh, rules)
 
 
 @torch.no_grad()
@@ -722,11 +924,16 @@ def item_embeddings(params: _Recsys, cfg: RecsysConfig) -> Tensor:
 
 @torch.no_grad()
 def retrieval_scores(params: _Recsys, batch: RecsysBatch, cfg: RecsysConfig,
-                     *, use_kernel: Optional[bool] = None) -> Tensor:
+                     *, use_kernel: Optional[bool] = None, mesh=None,
+                     rules=None) -> Tensor:
     """retrieval_cand shape: [B, n_items] scores of the users against the
     full candidate set (the dense batched-dot MIPS path)."""
-    u = user_repr(params, batch, cfg, use_kernel=use_kernel)
-    return torch.matmul(u, item_embeddings(params, cfg).t())
+    u = user_repr(params, batch, cfg, use_kernel=use_kernel, mesh=mesh,
+                  rules=rules)
+    items = R.constrain(item_embeddings(params, cfg), mesh,
+                        ("candidates", None), rules)
+    s = torch.matmul(u, items.t())
+    return R.constrain(s, mesh, ("batch", "candidates"), rules)
 
 
 def sparsify_items(items: Tensor, t: int):

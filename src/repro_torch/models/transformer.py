@@ -19,9 +19,17 @@ points are the reference's:
 A Python loop runs the layers (the reference scans them), each with its
 window; the weights are cast to the activation dtype at each use, as the
 reference's ``.astype(h.dtype)``.  ``prefill`` and ``decode_step`` run
-under ``torch.no_grad()`` and write the cache in place.  The mesh tooling
-(``abstract_params``, ``logical_axes``, ``abstract_cache``,
-``cache_logical_axes``) waits for the mesh slice.
+under ``torch.no_grad()`` and write the cache in place.
+
+The mesh tooling is the reference's: ``abstract_params`` / ``abstract_cache``
+(the model and cache on ``meta``: shapes and dtypes, no storage),
+``logical_axes`` / ``cache_logical_axes``, and the ``mesh`` / ``rules``
+arguments, with which the entry points run on DTensors and pin the
+reference's placements (``repro_torch.distributed.rules.constrain``) at the
+reference's points; ``repro_torch.launch.dryrun`` places every LM cell that
+way.  With ``mesh`` None or of one device they compute exactly what they
+compute without one.  The sharded GNN and compressed gradients wait for
+ROADMAP.md Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from torch.nn.functional import embedding
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.distributed import rules as R
+from repro_torch.distributed.rules import L
 from repro_torch.models import layers, tree_leaves
 
 Tensor = torch.Tensor
@@ -203,61 +213,129 @@ def init_params(generator, cfg: LMConfig, dtype=torch.float32,
     return TransformerLM(cfg, generator, dtype, device)
 
 
+def abstract_params(cfg: LMConfig, dtype=torch.float32) -> TransformerLM:
+    """The model on ``meta``: the reference's shapes and dtypes, nothing
+    allocated (the dry-run path)."""
+    return TransformerLM(cfg, dtype=dtype, device="meta", draw=False)
+
+
+def logical_axes(cfg: LMConfig) -> dict:
+    """The reference's logical axes of every leaf, as a nested dict of
+    :class:`~repro_torch.distributed.rules.L`."""
+    lp = {
+        "ln1": L(None, "embed"),
+        "ln2": L(None, "embed"),
+        "wq": L(None, "fsdp", "heads", None),
+        "wk": L(None, "fsdp", "kv_heads", None),
+        "wv": L(None, "fsdp", "kv_heads", None),
+        "wo": L(None, "heads", None, "fsdp"),
+    }
+    if cfg.moe:
+        lp.update({
+            "router": L(None, "fsdp", None),
+            "wi": L(None, "expert", "fsdp", "mlp"),
+            "wg": L(None, "expert", "fsdp", "mlp"),
+            "wo_mlp": L(None, "expert", "mlp", "fsdp"),
+        })
+    else:
+        lp.update({
+            "wi": L(None, "fsdp", "mlp"),
+            "wg": L(None, "fsdp", "mlp"),
+            "wo_mlp": L(None, "mlp", "fsdp"),
+        })
+    return {
+        "embed": L("vocab", "fsdp"),
+        "layers": lp,
+        "ln_f": L("embed"),
+        "unembed": L("fsdp", "vocab"),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward (training)
 # ---------------------------------------------------------------------------
 
-def _qkv(lp: dict, x: Tensor, rot, cfg: LMConfig):
+def _qkv(lp: dict, x: Tensor, rot, cfg: LMConfig, mesh=None, rules=None):
     """q [B, S, H, hd] and the new k, v [B, S, KV, hd], RoPE'd by ``rot``
-    (``layers.rope_tables`` of the positions), in x's dtype."""
+    (``layers.rope_tables`` of the positions), in x's dtype.  On a mesh
+    each projection's heads are placed by their logical axis before the
+    heads are split out (a head count that does not divide stays whole)."""
     B, S, d = x.shape
-    h = layers.rms_norm(x, lp["ln1"])
+    # seq-full at the block's entry (the residual is seq-sharded)
+    h = R.constrain(layers.rms_norm(x, lp["ln1"]), mesh,
+                    ("batch", None, "embed"), rules)
     dt = h.dtype
 
-    def proj(w):
-        return torch.matmul(h, w.reshape(d, -1).to(dt)).view(
-            B, S, w.shape[1], w.shape[2])
+    def proj(w, heads):
+        flat = w.reshape(d, -1)
+        if R.mesh_size(mesh) > 1:
+            if not R.spec_for(mesh, (w.shape[1],), (heads,), rules):
+                heads = None
+            flat = R.gathered(flat, mesh, ("fsdp", heads), rules)
+        out = torch.matmul(h, flat.to(dt))
+        out = R.constrain(out, mesh, ("batch", None, heads), rules)
+        return out.view(B, S, w.shape[1], w.shape[2])
 
-    q, k, v = proj(lp["wq"]), proj(lp["wk"]), proj(lp["wv"])
+    q = proj(lp["wq"], "heads")
+    k, v = proj(lp["wk"], "kv_heads"), proj(lp["wv"], "kv_heads")
     return layers.apply_rope(q, *rot), layers.apply_rope(k, *rot), v
 
 
-def _out_proj(lp: dict, attn: Tensor) -> Tensor:
+def _out_proj(lp: dict, attn: Tensor, mesh=None, rules=None) -> Tensor:
     B, S, H, hd = attn.shape
-    return torch.matmul(attn.reshape(B, S, H * hd),
-                        lp["wo"].reshape(H * hd, -1).to(attn.dtype))
+    wo = lp["wo"].reshape(H * hd, -1).to(attn.dtype)
+    if R.mesh_size(mesh) > 1:
+        heads = "heads" if R.spec_for(mesh, (H,), ("heads",), rules) \
+            else None
+        wo = R.gathered(wo, mesh, (heads, "fsdp"), rules)
+    return torch.matmul(attn.reshape(B, S, H * hd), wo)
 
 
-def _mlp_block(lp: dict, x: Tensor, cfg: LMConfig, moe_stats=None):
-    h = layers.rms_norm(x, lp["ln2"])
+def _mlp_block(lp: dict, x: Tensor, cfg: LMConfig, moe_stats=None,
+               mesh=None, rules=None):
+    # seq-full at the block's entry, as the attention's
+    h = R.constrain(layers.rms_norm(x, lp["ln2"]), mesh,
+                    ("batch", None, "embed"), rules)
     if cfg.moe:
         return layers.moe_layer(
             h, lp["router"], lp["wi"], lp["wg"], lp["wo_mlp"],
             top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor,
-            group_size=cfg.group_size, stats=moe_stats)
-    return layers.swiglu_mlp(h, lp["wi"], lp["wg"], lp["wo_mlp"]), None
+            group_size=cfg.group_size, stats=moe_stats, mesh=mesh,
+            rules=rules)
+    return layers.swiglu_mlp(h, lp["wi"], lp["wg"], lp["wo_mlp"], mesh,
+                             rules), None
+
+
+_RESIDUAL = ("batch", "act_seq", "embed")
 
 
 def _layer(x: Tensor, lp: dict, rot, window: int, cfg: LMConfig,
-           moe_stats=None):
+           moe_stats=None, mesh=None, rules=None):
     """One block: (x out, aux or None, (k, v) of the block)."""
-    q, k, v = _qkv(lp, x, rot, cfg)
+    q, k, v = _qkv(lp, x, rot, cfg, mesh, rules)
+    q = R.constrain(q, mesh, ("batch", None, "heads", None), rules)
     attn = layers.blockwise_attention(q, k, v, causal=True, window=window,
-                                      chunk=cfg.attn_chunk)
+                                      chunk=cfg.attn_chunk, mesh=mesh,
+                                      rules=rules)
     del q
-    x = x + _out_proj(lp, attn)
+    # seq-full at the block edge
+    x = x + R.constrain(_out_proj(lp, attn, mesh, rules), mesh,
+                        ("batch", None, "embed"),
+                        rules)
     del attn
-    mlp, aux = _mlp_block(lp, x, cfg, moe_stats)
-    return x + mlp, aux, (k, v)
+    mlp, aux = _mlp_block(lp, x, cfg, moe_stats, mesh, rules)
+    return R.constrain(x + mlp, mesh, _RESIDUAL, rules), aux, (k, v)
 
 
-def _remat_layer(x, rot, window, cfg, names, *weights):
-    out, aux, _ = _layer(x, dict(zip(names, weights)), rot, window, cfg)
+def _remat_layer(x, rot, window, cfg, mesh, rules, names, *weights):
+    out, aux, _ = _layer(x, dict(zip(names, weights)), rot, window, cfg,
+                         mesh=mesh, rules=rules)
     return out, aux
 
 
 def forward(params: TransformerLM, tokens: Tensor, cfg: LMConfig,
-            collect_kv: bool = False, moe_stats: Optional[list] = None):
+            collect_kv: bool = False, moe_stats: Optional[list] = None,
+            *, mesh=None, rules=None):
     """tokens [B, S] -> (final hidden [B, S, d], aux_loss[, kv cache]).
 
     ``collect_kv=True`` also returns the per-layer K/V as a decode-ready
@@ -269,27 +347,33 @@ def forward(params: TransformerLM, tokens: Tensor, cfg: LMConfig,
     """
     B, S = tokens.shape
     dt = cfg.tdtype
-    x = embedding(tokens.long(), params.embed).to(dt)
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    rot = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    embed = R.gathered(params.embed, mesh, ("vocab", "fsdp"), rules)
+    x = embedding(tokens.long(), embed).to(dt)
+    x = R.constrain(x, mesh, _RESIDUAL, rules)
+    # one row of positions: the RoPE tables broadcast over the batch
+    rot = layers.rope_tables(torch.arange(S, device=x.device)[None],
+                             cfg.head_dim, cfg.rope_theta)
     cache = None
     if collect_kv:
         shape = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.head_dim)
-        cache = {"k": torch.empty(shape, dtype=dt, device=x.device),
-                 "v": torch.empty(shape, dtype=dt, device=x.device)}
+        cache = {"k": _new_cache(x, shape, dt, mesh, rules),
+                 "v": _new_cache(x, shape, dt, mesh, rules)}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for li, (lp, window) in enumerate(zip(params.layer_weights(),
                                           _windows(cfg))):
         if remat and moe_stats is None and not collect_kv:
             names = list(lp)
-            x, a = checkpoint(_remat_layer, x, rot, window, cfg, names,
-                              *lp.values(), use_reentrant=False)
+            x, a = checkpoint(_remat_layer, x, rot, window, cfg, mesh, rules,
+                              names, *lp.values(), use_reentrant=False)
         else:
-            x, a, (k, v) = _layer(x, lp, rot, window, cfg, moe_stats)
+            x, a, (k, v) = _layer(x, lp, rot, window, cfg, moe_stats, mesh,
+                                  rules)
             if collect_kv:
-                cache["k"][li] = k.transpose(1, 2)
-                cache["v"][li] = v.transpose(1, 2)
+                cache["k"][li] = R.constrain(k.transpose(1, 2), mesh,
+                                             _CACHE_AXES[1:], rules)
+                cache["v"][li] = R.constrain(v.transpose(1, 2), mesh,
+                                             _CACHE_AXES[1:], rules)
             del k, v
         if a is not None:
             aux = aux + a
@@ -299,39 +383,127 @@ def forward(params: TransformerLM, tokens: Tensor, cfg: LMConfig,
     return x, aux / cfg.n_layers
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[label]`` in f32 from
+    vocab-sharded DTensor logits [B, S, V] (Megatron's vocab-parallel
+    cross-entropy, which the reference's GSPMD lowering is): each device
+    reduces its own vocab block, and the per-token max, sum of exponentials
+    and gold logit are all-reduced over the vocab's mesh dimensions.  The
+    backward is local: (softmax - one-hot) · g."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, pl = logits.device_mesh, logits.placements
+        dims = [i for i, p in enumerate(pl) if p == Shard(2)]
+        tok_pl = tuple(Replicate() if p == Shard(2) else p for p in pl)
+
+        def reduce(t, op):
+            for i in dims:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+            return t
+
+        local = logits._local_tensor
+        vb = local.shape[-1]
+        lo = 0
+        for i in dims:
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+        lab = labels.redistribute(mesh, tok_pl)._local_tensor.long() - lo * vb
+        inside = (lab >= 0) & (lab < vb)
+        lab = lab.clamp(0, vb - 1)
+        lf = local.float()
+        mx = reduce(lf.amax(dim=-1), "max")
+        e = torch.exp(lf - mx[..., None])
+        se = reduce(e.sum(dim=-1), "sum")
+        gold = torch.gather(local, -1, lab[..., None])[..., 0].float()
+        gold = reduce(torch.where(inside, gold, 0.0), "sum")
+        ctx.save_for_backward(e, se, lab, inside)
+        ctx.meta = (logits.dtype, mesh, pl, tok_pl, logits.shape,
+                    logits.stride())
+        B, S, _ = logits.shape
+        return DTensor.from_local(mx + torch.log(se) - gold, mesh, tok_pl,
+                                  run_check=False, shape=(B, S),
+                                  stride=(S, 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        e, se, lab, inside = ctx.saved_tensors
+        dtype, mesh, pl, tok_pl, shape, stride = ctx.meta
+        gl = g.redistribute(mesh, tok_pl)._local_tensor \
+            if isinstance(g, DTensor) else g
+        d = e / se[..., None]
+        d.scatter_add_(-1, lab[..., None],
+                       -inside[..., None].to(d.dtype))
+        d = (d * gl[..., None]).to(dtype)
+        return DTensor.from_local(d, mesh, pl, run_check=False, shape=shape,
+                                  stride=stride), None
+
+
 def lm_loss(params: TransformerLM, tokens: Tensor, labels: Tensor,
-            cfg: LMConfig):
+            cfg: LMConfig, *, mesh=None, rules=None):
     """Softmax cross-entropy: logits in the activation dtype, their
     logsumexp and the gold logit in f32; ``xent + 0.01·aux`` and
-    {"xent", "aux"}."""
-    hidden, aux = forward(params, tokens, cfg)
-    logits = torch.matmul(hidden, params.unembed.to(hidden.dtype))
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0].float()
-    total = torch.sum(lse - gold)
+    {"xent", "aux"}.  On a mesh the logits are vocab-sharded."""
+    hidden, aux = forward(params, tokens, cfg, mesh=mesh, rules=rules)
+    hidden = R.constrain(hidden, mesh, ("batch", None, "embed"), rules)
+    unembed = R.gathered(params.unembed.to(hidden.dtype), mesh,
+                         ("fsdp", "vocab"), rules)
+    logits = torch.matmul(hidden, unembed)
+    logits = R.constrain(logits, mesh, ("batch", None, "vocab"), rules)
+    if R.mesh_size(mesh) == 1:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.long()[..., None])[..., 0].float()
+        per = lse - gold
+    else:
+        per = _VocabParallelXent.apply(logits, labels)
+    total = torch.sum(per)
     xent = total / labels.numel()
     loss = xent + 0.01 * aux
     return loss, {"xent": xent, "aux": aux}
 
 
-def logits_f32(params: TransformerLM, hidden: Tensor) -> Tensor:
+def logits_f32(params: TransformerLM, hidden: Tensor, mesh=None,
+               rules=None) -> Tensor:
     """f32 logits of hidden states [..., d] (the serving head)."""
-    return torch.matmul(hidden.float(), params.unembed.float())
+    unembed = R.gathered(params.unembed.float(), mesh, ("fsdp", "vocab"),
+                         rules)
+    return torch.matmul(hidden.float(), unembed)
 
 
 @torch.no_grad()
 def prefill(params: TransformerLM, tokens: Tensor, cfg: LMConfig,
-            moe_stats: Optional[list] = None):
+            moe_stats: Optional[list] = None, *, mesh=None, rules=None):
     """Inference prefill: f32 next-token logits of the last position [B, V]
     and the KV cache."""
     hidden, _, cache = forward(params, tokens, cfg, collect_kv=True,
-                               moe_stats=moe_stats)
-    return logits_f32(params, hidden[:, -1]), cache
+                               moe_stats=moe_stats, mesh=mesh, rules=rules)
+    logits = logits_f32(params, hidden[:, -1], mesh, rules)
+    return R.constrain(logits, mesh, ("batch", "vocab"), rules), cache
 
 
 # ---------------------------------------------------------------------------
 # Decode (serving) path
 # ---------------------------------------------------------------------------
+
+_CACHE_AXES = (None, "batch", "kv_heads", "kv_seq", None)
+
+
+def _new_cache(x: Tensor, shape, dtype, mesh, rules) -> Tensor:
+    """An empty cache leaf: on a mesh a DTensor placed by
+    :func:`cache_logical_axes`, else a plain tensor on x's device."""
+    if R.mesh_size(mesh) == 1:
+        return torch.empty(shape, dtype=dtype, device=x.device)
+    from torch.distributed.tensor import empty as dt_empty
+
+    return dt_empty(shape, dtype=dtype, device_mesh=mesh,
+                    placements=R.sharding_for(mesh, shape, _CACHE_AXES,
+                                              rules))
+
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> dict:
@@ -345,9 +517,33 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def abstract_cache(cfg: LMConfig, batch: int, max_seq: int,
+                   dtype=None) -> dict:
+    """:func:`init_cache`'s leaves on ``meta``: shapes and dtypes, no
+    storage."""
+    return init_cache(cfg, batch, max_seq, dtype, device="meta")
+
+
+def cache_logical_axes() -> dict:
+    ax = L(*_CACHE_AXES)
+    return {"k": ax, "v": ax}
+
+
+def _write_slot(c: Tensor, new: Tensor, slot: int, mesh) -> None:
+    """c[:, :, slot] = new [B, KV, hd].  On a mesh (the sequence axis may be
+    sharded) as the reference's dynamic_update_slice: the layer's cache
+    with the slot replaced, copied back in place."""
+    if R.mesh_size(mesh) == 1:
+        c[:, :, slot] = new
+        return
+    at = torch.arange(c.shape[2], device=c.device) == slot
+    c.copy_(torch.where(at[None, None, :, None], new[:, :, None], c))
+
+
 @torch.no_grad()
 def decode_step(params: TransformerLM, cache: dict, tokens: Tensor, pos,
-                cfg: LMConfig, moe_stats: Optional[list] = None):
+                cfg: LMConfig, moe_stats: Optional[list] = None, *,
+                mesh=None, rules=None):
     """One decoding step: (f32 logits [B, V], the cache).
 
     tokens: [B, 1] current token; pos: its position, a host integer (the
@@ -359,20 +555,28 @@ def decode_step(params: TransformerLM, cache: dict, tokens: Tensor, pos,
     pos = int(pos)
     B = tokens.shape[0]
     dt = cfg.tdtype
-    x = embedding(tokens.long(), params.embed).to(dt)          # [B, 1, d]
+    embed = R.gathered(params.embed, mesh, ("vocab", "fsdp"), rules)
+    x = embedding(tokens.long(), embed).to(dt)                 # [B, 1, d]
+    x = R.constrain(x, mesh, ("batch", None, "embed"), rules)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     rot = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     slot = min(max(pos, 0), cache["k"].shape[3] - 1)
+    cax = _CACHE_AXES[1:]
     for li, (lp, window) in enumerate(zip(params.layer_weights(),
                                           _windows(cfg))):
-        q, knew, vnew = _qkv(lp, x, rot, cfg)
+        q, knew, vnew = _qkv(lp, x, rot, cfg, mesh, rules)
         kc, vc = cache["k"][li], cache["v"][li]                # [B, KV, S, hd]
-        kc[:, :, slot] = knew[:, 0].to(kc.dtype)
-        vc[:, :, slot] = vnew[:, 0].to(vc.dtype)
+        _write_slot(kc, knew[:, 0].to(kc.dtype), slot, mesh)
+        _write_slot(vc, vnew[:, 0].to(vc.dtype), slot, mesh)
+        kc = R.constrain(kc, mesh, cax, rules)
+        vc = R.constrain(vc, mesh, cax, rules)
         attn = layers.decode_attention(q, kc, vc, window=window,
-                                       q_offset=pos, kv_len=pos + 1)
-        x = x + _out_proj(lp, attn)
-        mlp, _ = _mlp_block(lp, x, cfg, moe_stats)
+                                       q_offset=pos, kv_len=pos + 1,
+                                       mesh=mesh, rules=rules)
+        x = x + R.constrain(_out_proj(lp, attn, mesh, rules), mesh,
+                            ("batch", None, "embed"), rules)
+        mlp, _ = _mlp_block(lp, x, cfg, moe_stats, mesh, rules)
         x = x + mlp
     x = layers.rms_norm(x, params.ln_f)
-    return logits_f32(params, x[:, 0]), cache
+    logits = logits_f32(params, x[:, 0], mesh, rules)
+    return R.constrain(logits, mesh, ("batch", "vocab"), rules), cache

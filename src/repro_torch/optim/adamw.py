@@ -20,6 +20,13 @@ parameters' device: PyTorch's CUDA division by a host scalar multiplies by
 its reciprocal instead, which is not the reference's rounding.  As in the
 reference, weight and moment decay touch every row, so the gradient stays
 dense.
+
+On a mesh (leaves that are DTensors, ``repro_torch.launch.dryrun``) the
+update is elementwise, so each device updates its own block: a gradient is
+first placed like its parameter (which reduces its partial sums), then
+every chunk runs on the local blocks.  The global norm is the one
+reduction: each device sums the squares of its blocks (a block held by r
+replicas counts 1/r, an exact power-of-two scale), then one all-reduce.
 """
 
 from __future__ import annotations
@@ -80,6 +87,25 @@ def schedule(cfg: AdamWConfig, step: Tensor) -> Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "_local_tensor")
+
+
+def _local(t):
+    """This device's block of a DTensor; a plain tensor as it is."""
+    return t._local_tensor if _is_dtensor(t) else t
+
+
+def _replicas(t) -> int:
+    """Devices holding each block of a DTensor (its replicated mesh
+    dimensions)."""
+    n = 1
+    for i, p in enumerate(t.placements):
+        if p.is_replicate():
+            n *= t.device_mesh.size(i)
+    return n
+
+
 def _chunks(*ts: Tensor):
     """Aligned views of the same-shaped tensors ``ts``, at most about
     :data:`CHUNK` elements each, covering them: runs of the flattened
@@ -101,16 +127,28 @@ def _chunks(*ts: Tensor):
 def global_norm(tree: dict) -> Tensor:
     """sqrt of the sum over the leaves (in order) of each leaf's sum of
     squares, in f32."""
-    sq = None
+    sq, mesh = None, None
     for g in tree.values():
+        reps = 1
+        if _is_dtensor(g):
+            mesh, reps = g.device_mesh, _replicas(g)
+            g = g._local_tensor
         s = None
         for c, in _chunks(g):
             c = c.to(torch.float32)
             part = torch.sum(c * c)
             s = part if s is None else s + part
+        if reps > 1:
+            s = s / reps
         sq = s if sq is None else sq + s
     if sq is None:
         return torch.zeros((), dtype=torch.float32)
+    if mesh is not None:
+        import torch.distributed as dist
+        from torch.distributed import _functional_collectives as funcol
+
+        sq = funcol.wait_tensor(funcol.all_reduce(sq, "sum",
+                                                  dist.group.WORLD))
     return torch.sqrt(sq)
 
 
@@ -123,7 +161,7 @@ def clip_by_global_norm(grads: dict, max_norm: float):
         torch.full_like(gn, max_norm),
         torch.maximum(gn, torch.full_like(gn, 1e-12))))
     for g in grads.values():
-        g.mul_(scale.to(g.dtype))
+        _local(g).mul_(scale.to(g.dtype))
     return grads, gn
 
 
@@ -152,6 +190,8 @@ def update(grads: dict, opt: OptState, params: dict, cfg: AdamWConfig):
     (params, the new OptState, {"grad_norm", "lr"})."""
     grads = {k: g if g.dtype == torch.float32 else g.to(torch.float32)
              for k, g in grads.items()}
+    grads = {k: g.redistribute(params[k].device_mesh, params[k].placements)
+             if _is_dtensor(g) else g for k, g in grads.items()}
     if cfg.clip_norm > 0:
         grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
     else:
@@ -163,8 +203,10 @@ def update(grads: dict, opt: OptState, params: dict, cfg: AdamWConfig):
                                      device=s.device), s)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                      device=s.device), s)
+    scalars = (_local(lr), _local(b1c), _local(b2c))
     for k, p in params.items():
-        for chunk in _chunks(p, grads[k], opt.m[k], opt.v[k]):
-            _update_chunk(*chunk, cfg, lr, b1c, b2c)
+        for chunk in _chunks(*map(_local, (p, grads[k], opt.m[k],
+                                           opt.v[k]))):
+            _update_chunk(*chunk, cfg, *scalars)
     return params, OptState(opt.m, opt.v, step), {"grad_norm": gn,
                                                   "lr": lr}

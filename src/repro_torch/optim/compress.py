@@ -4,8 +4,8 @@ worker keeps a residual; ``g + residual`` is quantised per tensor to int8
 with one scale, and the quantisation error is the next residual.
 
 ``compressed_psum`` (the all-reduce of the int8 payload across workers)
-needs a collective, which waits for the mesh slice (ROADMAP.md, Queue 1
-item 12: the mesh tooling).
+needs a collective over the mesh, which waits for the mesh tooling's
+second half (ROADMAP.md, Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -44,5 +44,6 @@ def ef_compress_tree(grads: dict, residual: dict):
 
 def compressed_psum(grads: dict, residual: dict, axis_name: str):
     raise NotImplementedError(
-        "compressed_psum needs a collective across workers; it is not "
-        "ported yet (ROADMAP.md, Queue 1 item 12: the mesh tooling)")
+        "compressed_psum needs a collective across workers on a mesh; it "
+        "is not ported yet (ROADMAP.md, Queue 1 item 12b: the mesh "
+        "tooling's second half)")

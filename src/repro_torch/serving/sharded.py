@@ -63,6 +63,99 @@ from repro_torch.storage import vecstore
 Tensor = torch.Tensor
 
 
+# ---------------------------------------------------------------------------
+# The mesh form: one rank a shard (the reference's shard_map step)
+# ---------------------------------------------------------------------------
+
+def _corpus_spec(mesh):
+    corpus = meshlib.corpus_axes(mesh)
+    return corpus if len(corpus) > 1 else (corpus[0] if corpus else None)
+
+
+def state_pspecs(mesh, positive_only: bool = False) -> eng.SinnamonState:
+    """The spec of every state leaf (corpus slots over the mesh's
+    ``(pod, model)`` axes, the rest replicated), as the reference's
+    ``state_pspecs``, on the port's leaves: ``sketch`` [2m or m, C] holds
+    the reference's ``u`` and ``l``, and ``ids`` is int64[C] where the
+    reference keeps uint32[C, 2].  ``positive_only`` is kept for the
+    reference's signature: the sketch's spec is the same either way."""
+    c = _corpus_spec(mesh)
+    row = (c,) if c is not None else ()
+    col = (None, c) if c is not None else ()
+    return eng.SinnamonState(
+        mappings=(), sketch=col, bits=col,
+        store=vecstore.VecStore(indices=row, values=row),
+        active=row, ids=row, dirty=row, m=0)
+
+
+def _local_state(state: eng.SinnamonState) -> eng.SinnamonState:
+    """This rank's shard: each leaf's local block."""
+    loc = lambda t: getattr(t, "_local_tensor", t)          # noqa: E731
+    return eng.SinnamonState(
+        mappings=loc(state.mappings), sketch=loc(state.sketch),
+        bits=loc(state.bits),
+        store=vecstore.VecStore(loc(state.store.indices),
+                                loc(state.store.values)),
+        active=loc(state.active), ids=loc(state.ids), dirty=loc(state.dirty),
+        m=state.m)
+
+
+def make_search_step(mesh, local_spec: eng.EngineSpec, *, k: int,
+                     kprime_local: int, budget: Optional[int] = None,
+                     backend: Optional[str] = None,
+                     use_kernel: Optional[bool] = None):
+    """The SPMD search step of one rank, as the reference's
+    ``make_search_step``: ``step(state, q_idx[B, Lq], q_val[B, Lq]) ->
+    (scores f32[b, k], ids int64[b, k], locators int32[b, k])`` for this
+    rank's queries (a DTensor batch over ``data``: its local rows).
+
+    ``state`` is the global state, its leaves DTensors placed by
+    :func:`state_pspecs` (or, on a one-device mesh, plain tensors).  The
+    rank runs ``engine.topk_candidates`` on its own shard (the fused
+    backend by default: kernel A and its tile merge), B's rerank keeps its
+    top ``min(k, kl)``, and the candidate tuples (scores, ids, packed
+    (shard, slot) locators) are all-gathered over each corpus axis of more
+    than one device, as ``merge_over_axes`` does (three all-gathers an
+    axis; the reference's id is two uint32 payloads, the port's one
+    int64), then ``topk.merge_shards`` takes the global top-k in (score
+    desc, position asc) order.  On a one-device mesh nothing is gathered
+    and the answer is ``engine.search_batch``'s.
+    """
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch.kernels import ops as _ops
+
+    corpus = [a for a in meshlib.corpus_axes(mesh)
+              if meshlib.n_shards(mesh, (a,)) > 1]
+    backend = _ops.resolve_backend(backend)
+    names = tuple(mesh.mesh_dim_names)
+
+    def gather(t, ax):
+        g = funcol.all_gather_tensor(t.contiguous(), t.dim() - 1,
+                                     (mesh, names.index(ax)))
+        return funcol.wait_tensor(g)
+
+    def step(state: eng.SinnamonState, q_idx, q_val):
+        local = _local_state(state)
+        qi = getattr(q_idx, "_local_tensor", q_idx)
+        qv = getattr(q_val, "_local_tensor", q_val)
+        kl = min(kprime_local, local_spec.capacity)
+        ub, slots = eng.topk_candidates(local, local_spec, qi, qv, kl,
+                                        budget, backend=backend,
+                                        use_kernel=use_kernel)
+        ids, scores, sl = eng.rerank_topk(local, ub, slots, qi, qv,
+                                          min(k, kl), use_kernel=use_kernel)
+        shard = meshlib.linear_index(mesh, meshlib.corpus_axes(mesh))
+        tup = (scores, ids, topk.pack_shard_slot(shard, sl))
+        for ax in corpus:
+            tup = tuple(gather(t, ax) for t in tup)
+        vals, (ids, loc), _ = topk.merge_shards([tup[0]], [tup[1:]],
+                                                min(k, tup[0].shape[-1]))
+        return vals, ids, loc
+
+    return step
+
+
 def route_many(ext_ids, n_shards: int) -> np.ndarray:
     """Owning shard of each external id: the reference's Knuth hash
     ``((id * 2654435761) & 0xFFFFFFFF) % S`` on the ids' int64 bits."""

@@ -9,7 +9,7 @@ reference's leaf paths that the optimiser and the train-state checkpoints
 parameters and the moments in place and frees the gradients.
 
 Cross-worker gradient compression (``compress_axis``) needs a collective
-and waits for the mesh slice.
+over the mesh and waits for ROADMAP.md Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -60,7 +60,8 @@ def make_train_step(
     if compress_axis is not None:
         raise NotImplementedError(
             "gradient compression across workers (compress_axis) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 12: the mesh tooling)")
+            "ported yet (ROADMAP.md, Queue 1 item 12b: the mesh tooling's "
+            "second half)")
 
     def grads_of(params, batch):
         for t in params.parameters():
