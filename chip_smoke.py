@@ -209,10 +209,13 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
 13. mesh    — after 12: the mesh tooling.  13a: the dry run
               (``launch/dryrun.py``) of ``MESH_CELLS`` on the 16x16 and
               2x16x16 production meshes, one subprocess a cell and mesh
-              (a fake process group of 256 / 512 ranks each), side by
-              side on the host's cores: bytes, FLOPs and collectives a
-              device with H100 constants, and the cells above 80 GB a
-              device.  13b: dlrm-rm2 ``serve_p99`` and ``train_batch``
+              (a fake process group of 256 / 512 ranks each; the GNN's
+              ``ogb_products`` cell, whose one-device node tensor is
+              61.5 GB, as two, its 1- and 2-layer traces, extrapolated
+              to 12 layers), side by side on the host's cores: bytes,
+              FLOPs and collectives a device with H100 constants, and
+              the cells above 80 GB a device (the GNN cell above it
+              fails the run).  13b: dlrm-rm2 ``serve_p99`` and ``train_batch``
               dry-run on a 1x1 mesh against phases 6a and 10a: state bytes
               equal to the card's exactly, the peak, FLOP and roofline-time
               ratios printed.  13c: a one-device ``cuda`` mesh (gloo over
@@ -222,6 +225,19 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               forward (``index_add_`` deterministic) bit-equal to
               ``mesh=None``, launching the same kernels
               (``launches_mesh``).
+14. gnn mesh — on the card while 13a's traces finish: the sharded GNN
+              (``models/gnn_sharded.py``) on a one-rank ``cuda`` mesh
+              (gloo, world 1).  14a: equiformer-v2 at full width and
+              depth (12 layers, c=128, l_max=6, H=8) on ``full_graph_sm``
+              and ``molecule`` through ``loss_fn_sharded`` against
+              ``gnn.loss_fn`` on the same weights and graph (the loss and
+              every gradient leaf within 1e-4 of scale), a train step of
+              each path timed side by side, the sharded loss + backward's
+              peak.  14b: 3 ``full_graph_sm`` steps of
+              ``make_train_step(compress_axis="pod")``: the residual
+              bit-equal to the host's quantisation of the same gradients,
+              the parameters within 1e-6 of the host's AdamW.  No kernel
+              launches (``launches_gnn_mesh``).
 
 Launch counts are read per path: kernel A and B's rerank kernel
 (``csr_rerank_topk``) must launch on the fused path, C and the rerank
@@ -233,9 +249,9 @@ durable index; A and the rerank kernel once a shard per batch
 (``launches_sharded``) on the sharded index; D and its backward once a
 step (``launches_train``, and ``launches`` of the backward's row) on the
 DLRM train steps, no kernel on DIN / SASRec / MIND, the LM path
-(``launches_lm``) or the GNN path (``launches_gnn``).  Ends with JSON
-lines of the recsys, durability, front-door, tiered, sharded, train, lm,
-gnn and mesh numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
+(``launches_lm``), the GNN path (``launches_gnn``) or the sharded GNN
+(``launches_gnn_mesh``).  Ends with JSON lines of the recsys, durability,
+front-door, tiered, sharded, train, lm, gnn, mesh and gnn_mesh numbers, a JSON line of per-kernel numbers, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA or a
 directory without the package.
@@ -753,8 +769,10 @@ def main(argv=None) -> int:
     # -- 13. the mesh tooling: dry run on the host, 1x1 mesh on the card ----
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_line, mesh_counts = mesh_path(args.seed, dev, card, recsys_line,
-                                       train_line, cdf)
+    # -- 14. the sharded GNN and compressed gradients, while 13a traces --------
+    mesh_line, mesh_counts, (gnn_mesh_line, gnn_mesh_counts) = mesh_path(
+        args.seed, dev, card, recsys_line, train_line, cdf,
+        then=lambda: gnn_mesh_path(args.seed, dev, card))
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
@@ -764,6 +782,7 @@ def main(argv=None) -> int:
         row["launches_lm"] = lm_counts[row["name"]]
         row["launches_gnn"] = gnn_counts[row["name"]]
         row["launches_mesh"] = mesh_counts[row["name"]]
+        row["launches_gnn_mesh"] = gnn_mesh_counts[row["name"]]
 
     peak = max(torch.cuda.max_memory_allocated(), _PEAK_BEFORE_RESET[0])
     log(f"[end] peak device memory {peak / 2**30:.2f} GiB; whole run "
@@ -780,6 +799,7 @@ def main(argv=None) -> int:
     print(json.dumps({"lm": lm_line}), flush=True)
     print(json.dumps({"gnn": gnn_line}), flush=True)
     print(json.dumps({"mesh": mesh_line}), flush=True)
+    print(json.dumps({"gnn_mesh": gnn_mesh_line}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1287,14 +1307,20 @@ def durable_run(doc_idx, doc_val, q_idx, q_val, seed, dev, scratch):
     return counts, out
 
 
+#: phase 7's saturation point: 50,000 q/s offered for 1 s, 50,000 arrivals
+#: (3 s and 150,000 arrivals took ≈38 s of the run at ≈4,000 q/s; cut to
+#: keep the whole script near 600 s beside phases 13a and 14)
+FRONTDOOR_SAT_S = 1.0
+
+
 def frontdoor_path(server, index, q_idx, q_val, lat, card):
     """Phase 7: ``ServingFrontend`` over phase 5's ``QueryServer``.
 
     (a) 16 client threads submit 256 queries (max_batch=16, 2 ms window,
     query_pad=32): ids and scores bit-equal to ``query()`` once per query,
     ids equal to one ``query_many`` at B=256; (b) ``loadgen.run_point`` with
-    64 clients: a saturation point offered 50,000 q/s for 3 s (achieved X),
-    then 0.25·X, 0.5·X and 0.9·X for 3 s each (device busy share under
+    64 clients: a saturation point offered 50,000 q/s for FRONTDOOR_SAT_S
+    (achieved X), then 0.25·X, 0.5·X and 0.9·X for 3 s each (device busy share under
     torch.profiler at 0.5·X); (c) a ``FrontendServer`` on 127.0.0.1:0
     answers 64 POSTs equal to (a), ``/metrics`` parses, ``/readyz`` is 200;
     (d) A and B's rerank launch, C, D and the LinScan do not.  Also the
@@ -1363,7 +1389,7 @@ def frontdoor_path(server, index, q_idx, q_val, lat, card):
         f"B=256; mean batch fill {out['coalesce']['mean_batch_fill']:.2f}")
 
     # (b) load points
-    def point(offered, profile=False):
+    def point(offered, profile=False, duration_s=3.0):
         reg = MetricsRegistry()
         fe = front(reg)
         try:
@@ -1373,13 +1399,13 @@ def frontdoor_path(server, index, q_idx, q_val, lat, card):
                 from torch.profiler import profile as prof_ctx
                 with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
                     p = loadgen.run_point(call, queries, offered, clients=64,
-                                          duration_s=3.0)
+                                          duration_s=duration_s)
                     torch.cuda.synchronize()
                 busy = sum(e.self_device_time_total
                            for e in prof.key_averages()) / 1e3
             else:
                 p = loadgen.run_point(call, queries, offered, clients=64,
-                                      duration_s=3.0)
+                                      duration_s=duration_s)
         finally:
             fe.close()
         row = p.to_row()
@@ -1401,7 +1427,7 @@ def frontdoor_path(server, index, q_idx, q_val, lat, card):
                                  f"{offered} q/s")
         return row
 
-    sat = point(50_000.0)
+    sat = point(50_000.0, duration_s=FRONTDOOR_SAT_S)
     x = sat["achieved_qps"]
     out["load"] = {"saturation": sat,
                    "0.25X": point(0.25 * x), "0.5X": point(0.5 * x, True),
@@ -4661,9 +4687,14 @@ def exact_small_index(open_index, IndexConfig, QueryServer, ops, vecstore,
 # -- 13. the mesh tooling ------------------------------------------------------
 
 #: the dry run's cells on the card's host (13a), each on both meshes
-MESH_CELLS = (("stablelm-12b", "train_4k"), ("deepseek-67b", "decode_32k"),
+MESH_CELLS = (("equiformer-v2", "ogb_products"),
+              ("stablelm-12b", "train_4k"), ("deepseek-67b", "decode_32k"),
               ("moonshot-v1-16b-a3b", "train_4k"), ("dlrm-rm2", "train_batch"),
               ("sinnamon-engine", "serve_msmarco"))
+#: 13a cells traced at 1 and 2 layers in two subprocesses side by side (the
+#: GNN's layer walks its edge chunks four times, ~76 s a traced layer on
+#: one CPU core at ogb_products) and extrapolated here
+MESH_DEPTH_SPLIT = ("equiformer-v2",)
 CARD_BYTES = 80e9                  # the H100's device memory
 MESH_DOCS = 65_536                 # 13c: the index the mesh step searches
 MESH_LM_LAYERS = 2                 # 13c: stablelm layers of the decode step
@@ -4672,9 +4703,19 @@ PEAK_BF16_NOTE = ("989 TFLOP/s bf16 dense, 67 TFLOP/s f32, 3.35 TB/s HBM, "
                   "50 GB/s a device for collectives (NDR InfiniBand)")
 
 _DRYRUN_CELL = r"""
-import json, sys
+import json, sys, time
+from repro_torch.configs import registry
 from repro_torch.launch import dryrun
-res = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1")
+from repro_torch.launch.mesh import production_shape
+arch, shape, mp = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+if len(sys.argv) > 4:                   # one depth: (figures, meta, seconds)
+    t0 = time.time()
+    mod = registry.get(arch)
+    fig, meta, _ = dryrun.trace(mod, mod.SHAPES[shape], *production_shape(mp),
+                                n_layers=int(sys.argv[4]))
+    res = {"fig": fig, "meta": meta, "t": time.time() - t0}
+else:
+    res = dryrun.run_cell(arch, shape, multi_pod=mp)
 print("JSON" + json.dumps(res))
 """
 
@@ -4708,8 +4749,22 @@ def _json_of(stdout: str) -> dict:
     return json.loads(lines[-1][4:])
 
 
+def _depth_result(arch: str, shape: str, mp: bool, parts: list) -> dict:
+    """A 13a cell's result from its 1- and 2-layer traces."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_shape
+
+    mod = registry.get(arch)
+    n = mod.full_config(mod.SHAPES[shape]).n_layers
+    fig = dryrun.extrapolate(parts[0]["fig"], parts[1]["fig"], n)
+    return dryrun.report(arch, shape, production_shape(mp)[0], fig,
+                         parts[0]["meta"], dryrun.depth_note(n, ["1", "2"]),
+                         max(p["t"] for p in parts))
+
+
 def mesh_path(seed: int, dev, card: str, recsys_line: dict,
-              train_line: dict, cdf):
+              train_line: dict, cdf, then=None):
     """Phase 13: 13a the dry run of ``MESH_CELLS`` on both production
     meshes (a fake process group of 256 / 512 ranks, one subprocess a cell
     and mesh, run side by side on the host's cores); 13b dlrm-rm2's
@@ -4717,17 +4772,25 @@ def mesh_path(seed: int, dev, card: str, recsys_line: dict,
     phases 6a and 10a measured; 13c a one-device ``cuda`` mesh on the
     card: the mesh search step, a DLRM forward, a 2-layer stablelm decode
     step and a GNN forward bit-equal to ``mesh=None`` with the same
-    launches.  Returns (the mesh JSON line, the launch counts of 13c's
-    mesh runs)."""
+    launches.  ``then`` (phase 14) runs on the card while 13a's traces
+    finish.  Returns (the mesh JSON line, the launch counts of 13c's mesh
+    runs, ``then()``'s result)."""
     import torch
 
     t_phase = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "src"))
-    jobs = [((arch, shape, mp), subprocess.Popen(
-        [sys.executable, "-c", _DRYRUN_CELL, arch, shape, "1" if mp else "0"],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for arch, shape in MESH_CELLS for mp in (False, True)]
+
+    def spawn(*argv):
+        return subprocess.Popen([sys.executable, "-c", _DRYRUN_CELL, *argv],
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    jobs = [((arch, shape, mp), [spawn(arch, shape, "1" if mp else "0", d)
+                                 for d in ("1", "2")]
+             if arch in MESH_DEPTH_SPLIT else
+             [spawn(arch, shape, "1" if mp else "0")])
+            for arch, shape in MESH_CELLS for mp in (False, True)]
     one = subprocess.Popen([sys.executable, "-c", _DRYRUN_1X1], env=env,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True)
@@ -4738,14 +4801,19 @@ def mesh_path(seed: int, dev, card: str, recsys_line: dict,
             raise AssertionError(f"13b dry run failed: {err[-2000:]}")
         dry = _json_of(out)
         line13b = mesh_against_card(dry, recsys_line, train_line, card)
+        extra = then() if then is not None else None
         results = []
-        for (arch, shape, mp), job in jobs:
-            out, err = job.communicate(timeout=900)
+        for (arch, shape, mp), procs in jobs:
             tag = f"{arch}/{shape}/{'2x16x16' if mp else '16x16'}"
-            if job.returncode:
-                log(f"[13a mesh] [FAIL] {tag}: {err[-1500:]}")
-                raise AssertionError(f"13a: the dry run of {tag} failed")
-            res = _json_of(out)
+            parts = []
+            for job in procs:
+                out, err = job.communicate(timeout=900)
+                if job.returncode:
+                    log(f"[13a mesh] [FAIL] {tag}: {err[-1500:]}")
+                    raise AssertionError(f"13a: the dry run of {tag} failed")
+                parts.append(_json_of(out))
+            res = (_depth_result(arch, shape, mp, parts) if len(parts) > 1
+                   else parts[0])
             results.append(res)
             log(f"[13a mesh] [OK] {tag}: {res['bytes_per_device']} B a "
                 f"device ({res['arg_bytes']} arguments + "
@@ -4760,9 +4828,10 @@ def mesh_path(seed: int, dev, card: str, recsys_line: dict,
                 + (f" (depth extrapolated from {res['depth']['traced']})"
                    if (res.get('depth') or {}).get('extrapolated') else ""))
     finally:
-        for _, job in jobs:
-            if job.poll() is None:
-                job.kill()
+        for _, procs in jobs:
+            for job in procs:
+                if job.poll() is None:
+                    job.kill()
         if one.poll() is None:
             one.kill()
     over = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in results
@@ -4770,11 +4839,14 @@ def mesh_path(seed: int, dev, card: str, recsys_line: dict,
     log(f"[13a mesh] H100 constants: {PEAK_BF16_NOTE}; cells above the "
         f"card's {CARD_BYTES / 1e9:.0f} GB a device: {over or 'none'} "
         f"({card})")
+    if any(o.startswith("equiformer-v2/") for o in over):
+        raise AssertionError(f"13a: the sharded GNN needs more than "
+                             f"{CARD_BYTES / 1e9:.0f} GB a device: {over}")
     line = {"card": card, "dryrun": results, "over_80GB": over,
             "vs_card": line13b, "one_device": line13c,
             "wall_s": time.perf_counter() - t_phase}
-    log(f"[13 mesh] phase {line['wall_s']:.1f}s")
-    return line, counts
+    log(f"[13 mesh] phase {line['wall_s']:.1f}s (phase 14 inside it)")
+    return line, counts, extra
 
 
 
@@ -4947,6 +5019,243 @@ def mesh_on_card(seed: int, dev, cdf):
         mesh_counts.setdefault(k, 0)
     return line, mesh_counts
 
+
+
+# -- 14. the sharded GNN and compressed gradients on a one-rank mesh -----------
+
+GNN_MESH_TIMED = 2                 # 14: timed train steps a path, after one
+GNN_MESH_STEPS = 3                 # 14b: compressed train steps
+#: 14a: the loss and every gradient leaf of ``loss_fn_sharded`` against
+#: ``gnn.loss_fn`` on the same weights and graph, max |difference| within
+#: 1e-4 of ``gnn.loss_fn``'s largest |value| (GNN_ORDER_TOL's reason: the
+#: sharded pass 2 sums exp(logit - M) against the final maximum where the
+#: one-device loop rescales a running sum, and ``index_add_`` sums with
+#: atomics on the card; the same comparison on the CPU at full width, 12
+#: layers, reads at most 1.8e-6).  A dropped collective or a wrong
+#: gradient transpose moves values by O(1); the reference's head faults
+#: move the loss by less (2e-4–4e-4 at the CPU tests' width, where
+#: ``tests/test_torch_gnn_sharded.py`` pins them).
+GNN_MESH_TOL = 1e-4
+
+
+def gnn_mesh_path(seed: int, dev, card: str):
+    """Phase 14: ``models/gnn_sharded.py`` and compressed gradients on a
+    one-rank ``cuda`` mesh (gloo over ``tcp://localhost``, world 1; an axis
+    of one device issues no collective).  14a: equiformer-v2 at full width
+    and depth on ``full_graph_sm`` and ``molecule`` through
+    ``loss_fn_sharded`` against ``gnn.loss_fn`` on the same inputs (loss
+    and every gradient within GNN_MESH_TOL), a train step of each path
+    timed side by side, the sharded step's peak memory.  14b:
+    ``make_train_step(compress_axis="pod")`` for GNN_MESH_STEPS
+    ``full_graph_sm`` steps against the same steps quantised on the host
+    from the same gradients.  Returns (the gnn_mesh JSON line, the launch
+    counts over the phase)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import common
+    from repro_torch.configs import equiformer_v2 as eq
+    from repro_torch.data import graph as graphdata
+    from repro_torch.distributed import mesh as meshlib
+
+    t_phase = time.perf_counter()
+    line = {"card": card}
+    kernels.reset_launch_counts()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = meshlib.single_device_mesh(("data", "model"), "cuda")
+        sm = common.GNN_SHAPES["full_graph_sm"]
+        hg_sm = graphdata.random_geometric_graph(
+            seed, sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+            sm["n_classes"], sm["pad_nodes"], sm["pad_edges"])
+        line["full_graph_sm"] = gnn_mesh_check(
+            eq.full_config(sm), hg_sm, seed, dev, mesh, card, "14a")
+        mol = common.GNN_SHAPES["molecule"]
+        hg = graphdata.molecule_batch(seed, mol["batch_graphs"],
+                                      mol["nodes_per"], mol["edges_per"],
+                                      mol["d_feat"])
+        line["molecule"] = gnn_mesh_check(eq.full_config(mol), hg, seed, dev,
+                                          mesh, card, "14a")
+        pod = meshlib.single_device_mesh(("pod",), "cuda")
+        line["compressed"] = gnn_compressed_steps(
+            eq.full_config(sm), hg_sm, seed, dev, pod, card)
+    finally:
+        dist.destroy_process_group()
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the sharded GNN path launched a kernel: "
+                             f"{counts}")
+    line["wall_s"] = time.perf_counter() - t_phase
+    log(f"[14 gnn mesh] phase {line['wall_s']:.1f}s; kernels A-D' launched "
+        f"{counts} ({card})")
+    return line, counts
+
+
+def _timed_steps(step, state, g, n: int):
+    """(the state after ``n`` steps, each step's host-clock ms)."""
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, g)
+        float(m["loss"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return state, walls
+
+
+def gnn_mesh_check(cfg, hg, seed: int, dev, mesh, card: str,
+                   tag: str) -> dict:
+    """14a on one graph: ``loss_fn_sharded`` and ``gnn.loss_fn`` of one
+    model drawn on the card from ``seed``; then a train step of each path
+    (one warm-up, GNN_MESH_TIMED timed, alternating), the sharded path's
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import graph as graphdata
+    from repro_torch.models import gnn
+    from repro_torch.models import gnn_sharded as gs
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    g = graphdata.to_device(hg, dev)
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, device=dev)
+    lp, _ = gnn.loss_fn(model, g, cfg)
+    lp.backward()
+    want = {k: t.clone() for k, t in model.leaves(grad=True).items()}
+    for p in model.parameters():
+        p.grad = None
+    _new_peak()
+    ls, _ = gs.loss_fn_sharded(model, g, cfg, mesh)
+    ls.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    got = model.leaves(grad=True)
+    errs = {"loss": _rel_err(ls, lp)}
+    errs.update({k: _rel_err(got[k], want[k]) for k in want})
+    worst = max(errs, key=errs.get)
+    for p in model.parameters():
+        p.grad = None
+    del want, got
+    if not (torch.isfinite(ls) and errs[worst] <= GNN_MESH_TOL):
+        raise AssertionError(f"{tag} {cfg.task}: loss_fn_sharded vs "
+                             f"gnn.loss_fn: {worst} off by {errs[worst]:.3g} "
+                             f"of its scale (> {GNN_MESH_TOL})")
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, decay_steps=20)
+    paths = {"sharded": lambda p, b: gs.loss_fn_sharded(p, b, cfg, mesh),
+             "one_device": lambda p, b: gnn.loss_fn(p, b, cfg)}
+    walls = {k: [] for k in paths}
+    for rnd in range(GNN_MESH_TIMED + 1):
+        for k, fn in paths.items():
+            state = loop.init_state(model)
+            _, w = _timed_steps(loop.make_train_step(fn, opt_cfg), state, g,
+                                1)
+            if rnd:
+                walls[k] += w
+    p50 = {k: float(np.percentile(v, 50)) for k, v in walls.items()}
+    n_real = int((hg.labels >= 0).sum()) if cfg.task == "node_class" \
+        else hg.node_feat.shape[0]
+    log(f"[{tag} gnn mesh] {cfg.name} {cfg.task}, {cfg.n_layers} layers, "
+        f"c={cfg.c}, l_max={cfg.l_max}, H={cfg.n_heads}, N="
+        f"{hg.node_feat.shape[0]}, E={hg.edge_src.shape[0]} on a 1x1 cuda "
+        f"mesh: loss_fn_sharded {float(ls):.6f} vs gnn.loss_fn "
+        f"{float(lp):.6f}; worst of the loss and {len(errs) - 1} gradient "
+        f"leaves {worst} at {errs[worst]:.3g} of its scale (tolerance "
+        f"{GNN_MESH_TOL}); train step p50 sharded {p50['sharded']:.1f} ms, "
+        f"one-device {p50['one_device']:.1f} ms (walls {walls}); sharded "
+        f"loss + backward peak {peak / 1e9:.2f} GB ({card})")
+    if peak >= PEAK_MEMORY_MAX:
+        raise AssertionError(f"{tag}: peak device memory {peak / 1e9:.2f} GB")
+    out = {"loss_sharded": float(ls), "loss_one_device": float(lp),
+           "rel_errs": errs, "worst": [worst, errs[worst]],
+           "tol": GNN_MESH_TOL, "walls_ms": walls, "step_ms_p50": p50,
+           "nodes_per_s_sharded": n_real / p50["sharded"] * 1e3,
+           "peak_bytes": peak}
+    del model, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_compressed_steps(cfg, hg, seed: int, dev, pod, card: str) -> dict:
+    """14b: GNN_MESH_STEPS steps of ``make_train_step(compress_axis="pod",
+    mesh=pod)`` on ``full_graph_sm``, every ``compressed_psum`` call's
+    gradients copied to the host on the way; the same steps on the host
+    (the quantisation in numpy f32, the update by ``adamw.update`` on CPU
+    tensors) from those gradients: the residual bit-equal, the
+    parameters within 1e-6 of their scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import graph as graphdata
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw, compress
+    from repro_torch.train import loop
+
+    g = graphdata.to_device(hg, dev)
+    model = gnn.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, device=dev)
+    host = {k: t.detach().cpu().clone() for k, t in model.leaves().items()}
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0)
+    seen = []
+    orig = compress.compressed_psum
+
+    def recorded(grads, residual, axis, mesh):
+        seen.append({k: t.detach().cpu().numpy().copy()
+                     for k, t in grads.items()})
+        return orig(grads, residual, axis, mesh)
+
+    step = loop.make_train_step(lambda p, b: gnn.loss_fn(p, b, cfg),
+                                opt_cfg, compress_axis="pod", mesh=pod)
+    state = loop.init_state(model, use_compression=True)
+    compress.compressed_psum = recorded
+    try:
+        state, walls = _timed_steps(step, state, g, GNN_MESH_STEPS)
+    finally:
+        compress.compressed_psum = orig
+    h_opt = adamw.init(host)
+    h_res = {k: np.zeros(t.shape, np.float32) for k, t in host.items()}
+    for grads in seen:
+        mean = {}
+        for k, gr in grads.items():
+            x = gr.astype(np.float32) + h_res[k]
+            scale = np.maximum(np.float32(np.abs(x).max()) / np.float32(127),
+                               np.float32(1e-12))
+            q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+            h_res[k] = x - q.astype(np.float32) * scale
+            mean[k] = torch.from_numpy(q.astype(np.float32) * scale)
+        _, h_opt, _ = adamw.update(mean, h_opt, host, opt_cfg)
+    res_equal = all(np.array_equal(
+        state.ef_residual[k].cpu().numpy().view(np.int32),
+        h_res[k].view(np.int32)) for k in h_res)
+    leaves = model.leaves()
+    p_err = max(_rel_err(leaves[k].cpu(), host[k]) for k in host)
+    p_equal = all(torch.equal(leaves[k].cpu(), host[k]) for k in host)
+    log(f"[14b gnn mesh] make_train_step(compress_axis='pod') on a one-rank "
+        f"cuda mesh, {cfg.name} full_graph_sm: {len(seen)} steps, walls "
+        f"{[round(w, 1) for w in walls]} ms; residual bit-equal to the "
+        f"host's quantisation of the same gradients: {res_equal}; "
+        f"parameters against the host's AdamW: max {p_err:.3g} of scale, "
+        f"bit-equal {p_equal} ({card})")
+    if len(seen) != GNN_MESH_STEPS or not res_equal or p_err > 1e-6:
+        raise AssertionError("14b: the compressed steps differ from the "
+                             "host's")
+    out = {"steps": len(seen), "walls_ms": walls,
+           "residual_bit_equal": res_equal, "params_rel_err": p_err,
+           "params_bit_equal": p_equal}
+    del model, state, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -34,12 +34,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-class WaitsFor12b(NotImplementedError):
-    """What needs the sharded GNN of ROADMAP.md Queue 1 item 12b (a GNN on
-    a mesh of more than one device, the GNN dry-run cells).  The dry run's
-    ``--all`` prints it as ``[WAIT]``; any other error of a cell, another
-    ``NotImplementedError`` among them, is a ``[FAIL]``."""
-
 
 AxisCandidates = Sequence[Tuple[str, ...]]
 Rules = Dict[str, AxisCandidates]

@@ -17,9 +17,9 @@ parameters, the moments and the cache in place, which is what donation
 buys XLA; the prefill builds its cache inside the step.  So no argument
 is counted twice.
 
-``n_layers`` cuts an LM to that depth (the dry run traces 1 and 2 layers
-and extrapolates; ``repro_torch.launch.dryrun``); ``meta`` always
-describes the full config.
+``n_layers`` cuts an LM or the GNN to that depth (the dry run traces 1
+and 2 layers and extrapolates; ``repro_torch.launch.dryrun``); ``meta``
+always describes the full config.
 """
 
 from __future__ import annotations
@@ -100,13 +100,21 @@ def place_model(model: nn.Module, axes: dict, mesh, rules=None,
     """Swap every parameter of an abstract (``meta``) model for a DTensor
     parameter placed by the family's logical axes."""
     by_name = param_axes(model, axes)
+    specs = {name: R.spec_for(mesh, p.shape, by_name[name].axes, rules)
+             for name, p in model.named_parameters()}
+    return _place_params(model, specs, mesh, requires_grad)
+
+
+def _place_params(model: nn.Module, specs: dict, mesh,
+                  requires_grad: bool = False) -> nn.Module:
+    """Swap every parameter of an abstract model for a DTensor parameter
+    placed by ``specs`` ({parameter name: spec})."""
     for name, p in list(model.named_parameters()):
         owner = model
         *path, leaf = name.split(".")
         for part in path:
             owner = getattr(owner, part)
-        dt = abstract_dtensor(mesh, p.shape, p.dtype, by_name[name].axes,
-                              rules)
+        dt = _place(mesh, p.shape, p.dtype, specs[name])
         setattr(owner, leaf, nn.Parameter(dt, requires_grad=requires_grad))
     return model
 
@@ -203,13 +211,67 @@ def build_lm(mod, shape, mesh, rules=None, n_layers: Optional[int] = None,
 # GNN cells
 # ---------------------------------------------------------------------------
 
-def build_gnn(mod, shape, mesh, rules=None) -> CellBundle:
-    """The GNN cells place the sharded EquiformerV2 of
-    ``models/gnn_sharded.py`` on any mesh larger than one device, which
-    waits for ROADMAP.md Queue 1 item 12b."""
-    raise R.WaitsFor12b(
-        "the GNN cells need the sharded GNN (models/gnn_sharded.py), which "
-        "waits for ROADMAP.md Queue 1 item 12b")
+def _gnn_flops(cfg, shape) -> dict:
+    """The reference's eSCN per-edge cost: the two rotations (2 ·
+    Σ(2l+1)² · C) and the SO(2) products, times 6 (forward and backward)
+    a layer."""
+    lm = cfg.l_max
+    rot = 2 * sum((2 * l + 1) ** 2 for l in range(lm + 1)) * cfg.c
+    conv = ((lm + 1) * cfg.c) ** 2 + 2 * sum(
+        ((lm + 1 - m) * cfg.c) ** 2 * 2 for m in range(1, cfg.m_max + 1))
+    return {"arch_kind": "gnn_train",
+            "model_flops": 6 * shape["n_edges"] * (rot + conv) * cfg.n_layers,
+            "params": None, "tokens": shape["n_edges"]}
+
+
+def build_gnn(mod, shape, mesh, rules=None,
+              n_layers: Optional[int] = None) -> CellBundle:
+    """One AdamW step of EquiformerV2 on the whole padded graph: node
+    tensors replicated, edges over the data axes, the parameters placed by
+    ``gnn_sharded.param_shardings``; ``gnn_sharded.loss_fn_sharded`` on a
+    mesh of more than one device, ``gnn.loss_fn`` on one.  ``n_graphs``
+    is static (the reference re-attaches it inside the step)."""
+    from repro_torch.models import gnn, gnn_sharded
+
+    full = mod.full_config(shape)
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    pn, pe = shape["pad_nodes"], shape["pad_edges"]
+    n_graphs = shape.get("batch_graphs", 1)
+    dax = gnn_sharded.data_axes(mesh)
+    edges = (dax if len(dax) > 1 else dax[0],) if dax else ()
+    node_class = shape["task"] == "node_class"
+    f32, i32 = torch.float32, torch.int32
+    g = gnn.GraphBatch(
+        node_feat=_place(mesh, (pn, shape["d_feat"]), f32, ()),
+        edge_src=_place(mesh, (pe,), i32, edges),
+        edge_dst=_place(mesh, (pe,), i32, edges),
+        edge_vec=_place(mesh, (pe, 3), f32, edges),
+        labels=_place(mesh, (pn,) if node_class else (n_graphs,),
+                      i32 if node_class else f32, ()),
+        forces=_place(mesh, (pn, 3), f32, ()),
+        graph_id=_place(mesh, (pn,), i32, ()), n_graphs=n_graphs)
+    specs = gnn_sharded.param_pspecs(cfg)
+    model = _place_params(abstract(gnn.abstract_params, cfg),
+                          {k.replace("/", "."): s for k, s in specs.items()},
+                          mesh, requires_grad=True)
+    lv = model.leaves()
+
+    def moments():
+        return {k: _place(mesh, p.shape, torch.float32, specs[k])
+                for k, p in lv.items()}
+
+    state = loop.TrainState(model, adamw.OptState(
+        m=moments(), v=moments(), step=_place(mesh, (), torch.int32, ())),
+        None)
+
+    def loss_fn(params, batch):
+        if R.mesh_size(mesh) > 1:
+            return gnn_sharded.loss_fn_sharded(params, batch, cfg, mesh)
+        return gnn.loss_fn(params, batch, cfg, mesh=mesh, rules=rules)
+
+    step = loop.make_train_step(loss_fn, OPT_CFG)
+    return CellBundle(step, (state, g), (0,), _gnn_flops(full, shape))
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +420,7 @@ def meta_for(mod, shape: dict, n_corpus_shards: int = 1) -> dict:
         return {"arch_kind": "retrieval_serve", "model_flops": flops,
                 "tokens": B}
     if mod.FAMILY == "gnn":
-        raise R.WaitsFor12b("the GNN cells' meta waits for ROADMAP.md Queue "
-                            "1 item 12b")
+        return _gnn_flops(mod.full_config(shape), shape)
     raise ValueError(f"no dry-run cell for the {mod.FAMILY!r} family")
 
 
@@ -380,7 +441,7 @@ def build_for(mod, shape: dict, mesh, rules=None,
     if fam == "lm":
         return build_lm(mod, shape, mesh, rules, n_layers, global_only)
     if fam == "gnn":
-        return build_gnn(mod, shape, mesh, rules)
+        return build_gnn(mod, shape, mesh, rules, n_layers)
     if fam == "recsys":
         return build_recsys(mod, shape, mesh, rules)
     if fam == "retrieval":

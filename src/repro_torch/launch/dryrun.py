@@ -49,10 +49,12 @@ What each result's figures mean:
 The collectives are what DTensor's sharding propagation issues for these
 placements, not what GSPMD would; their counts are not the reference's.
 
-Depth.  Eager dispatch costs per op, so an LM cell is traced at 1 and 2
-layers (and, for interleaved local:global attention, at 1 layer of each
-window kind) and every per-device figure is extrapolated linearly to full
-depth; the result says so (``depth``).  Argument bytes, FLOPs and
+Depth.  Eager dispatch costs per op, so an LM or GNN cell is traced at 1
+and 2 layers (and, for interleaved local:global attention, at 1 layer of
+each window kind) and every per-device figure is extrapolated linearly to
+full depth; the result says so (``depth``).  (A GNN layer walks its edge
+chunks four times: ``ogb_products`` on 16×16 takes about 76 s a traced
+layer on one CPU core.)  Argument bytes, FLOPs and
 collectives are linear in depth, and the suite checks the extrapolation
 against a full-depth run; the temporary peak is extrapolated the same way
 and is an estimate.
@@ -79,7 +81,6 @@ from typing import Optional
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.distributed.rules import WaitsFor12b
 from repro_torch.launch import cells
 from repro_torch.launch.mesh import production_shape
 
@@ -319,53 +320,73 @@ def _combine(parts: list) -> dict:
 
 def _measure_cell(mod, shape, mesh, rules, n_layers=None,
                   global_only=False) -> tuple:
+    _clear_device_caches()
     bundle = cells.build_for(mod, shape, mesh, rules, n_layers=n_layers,
                              global_only=global_only)
     return measure(bundle.fn, bundle.args), bundle.meta
 
 
-def measure_lm_depth(mod, shape, mesh, rules=None) -> tuple:
-    """Figures at full depth from traces at 1 and 2 layers (and 1 global
-    layer when the arch interleaves window kinds): with Δ = f(2) - f(1),
+def _depth_config(mod, shape):
+    """The full config whose depth a cell's trace cuts."""
+    return mod.full_config(shape) if mod.FAMILY == "gnn" else \
+        mod.full_config()
+
+
+def measure_depth(mod, shape, mesh, rules=None) -> tuple:
+    """Figures at full depth from traces at 1 and 2 layers (and, for an LM
+    that interleaves window kinds, 1 global layer): with Δ = f(2) - f(1),
     f(n) = f(1) + (n_first - 1)·Δ + n_global·(f_global(1) - f(1) + Δ),
     n_first the layers of layer 0's kind."""
-    from repro_torch.models.transformer import layer_is_global
-
-    cfg = mod.full_config()
+    cfg = _depth_config(mod, shape)
     f1, meta = _measure_cell(mod, shape, mesh, rules, 1)
     f2, _ = _measure_cell(mod, shape, mesh, rules, 2)
-    flags = layer_is_global(cfg)
-    n_glob = int(flags.sum())
-    interleaved = not flags[0] and n_glob > 0
+    n_glob, interleaved = 0, False
+    if mod.FAMILY == "lm":
+        from repro_torch.models.transformer import layer_is_global
+
+        flags = layer_is_global(cfg)
+        n_glob = int(flags.sum())
+        interleaved = not flags[0] and n_glob > 0
     n_first = cfg.n_layers - (n_glob if interleaved else 0)
-    parts = [(1, f1), (n_first - 1, f2), (-(n_first - 1), f1)]
+    fig = extrapolate(f1, f2, n_first)
     traced = ["1", "2"]
     if interleaved:
         fg, _ = _measure_cell(mod, shape, mesh, rules, 1, global_only=True)
-        parts += [(n_glob, fg), (-n_glob, f1), (n_glob, f2), (-n_glob, f1)]
+        fig = _combine([(1, fig), (n_glob, fg), (-n_glob, f1), (n_glob, f2),
+                        (-n_glob, f1)])
         traced.append("1 global")
-    depth = {"n_layers": cfg.n_layers, "traced": traced,
-             "extrapolated": True}
-    return _combine(parts), meta, depth
+    return fig, meta, depth_note(cfg.n_layers, traced)
+
+
+def depth_note(n_layers: int, traced: list) -> dict:
+    return {"n_layers": n_layers, "traced": traced, "extrapolated": True}
+
+
+def extrapolate(f1: dict, f2: dict, n_layers: int) -> dict:
+    """Figures at ``n_layers`` from those at 1 and 2 layers of a model
+    whose layers are all alike: f(1) + (n - 1)·(f(2) - f(1))."""
+    return _combine([(1, f1), (n_layers - 1, f2), (-(n_layers - 1), f1)])
 
 
 def _measure(mod, shape, mesh, rules, full_depth: bool) -> tuple:
-    if mod.FAMILY == "lm" and not full_depth:
-        return measure_lm_depth(mod, shape, mesh, rules)
+    layered = mod.FAMILY in ("lm", "gnn")
+    if layered and not full_depth:
+        return measure_depth(mod, shape, mesh, rules)
     fig, meta = _measure_cell(mod, shape, mesh, rules)
     depth = None
-    if mod.FAMILY == "lm":
-        depth = {"n_layers": mod.full_config().n_layers, "traced": ["all"],
-                 "extrapolated": False}
+    if layered:
+        depth = {"n_layers": _depth_config(mod, shape).n_layers,
+                 "traced": ["all"], "extrapolated": False}
     return fig, meta, depth
 
 
 def trace(mod, shape: dict, mesh_shape, axes, rules=None,
-          full_depth: bool = False) -> tuple:
+          full_depth: bool = False, n_layers: Optional[int] = None) -> tuple:
     """(figures, meta, depth) of one cell (a config module and a shape
     dict) on a mesh of ``mesh_shape`` with ``axes``, in a fake world of its
-    size with ``FakeTensorMode`` on.  LM cells are traced at cut depth
-    unless ``full_depth``."""
+    size with ``FakeTensorMode`` on.  LM and GNN cells are traced at cut
+    depth unless ``full_depth``; ``n_layers`` traces that depth alone
+    (depth None: nothing extrapolated)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.distributed import mesh as meshlib
@@ -373,8 +394,25 @@ def trace(mod, shape: dict, mesh_shape, axes, rules=None,
     with fake_world(math.prod(mesh_shape)):
         # the mesh is built on real tensors, before the fake mode
         mesh = meshlib.make_mesh(mesh_shape, axes, "cpu")
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            return _measure(mod, shape, mesh, rules, full_depth)
+        try:
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                if n_layers is not None:
+                    return (*_measure_cell(mod, shape, mesh, rules,
+                                           n_layers), None)
+                return _measure(mod, shape, mesh, rules, full_depth)
+        finally:
+            _clear_device_caches()
+
+
+def _clear_device_caches() -> None:
+    """Drop the models' per-device constant tensors, made fake inside the
+    trace: a later run in this process makes them anew (and a trace counts
+    them every time)."""
+    from repro_torch.models import gnn, sh
+
+    for cached in (gnn._m_rows, gnn._coef_degree, sh._dz_tensors,
+                   sh._j_tensors):
+        cached.cache_clear()
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
@@ -383,18 +421,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     """One cell's result on the production mesh (or on ``mesh_shape``, a
     (shape, axis names) pair)."""
     shape, axes = mesh_shape or production_shape(multi_pod)
-    n_dev = math.prod(shape)
     t0 = time.time()
     mod = registry.get(arch)
     fig, meta, depth = trace(mod, mod.SHAPES[shape_name], shape, axes, rules,
                              full_depth)
-    flops = float(fig["flops"])
+    return report(arch, shape_name, shape, fig, meta, depth,
+                  time.time() - t0)
 
+
+def report(arch: str, shape_name: str, mesh_shape, fig: dict, meta: dict,
+           depth: Optional[dict], trace_s: float) -> dict:
+    """One cell's result from its figures on a mesh of ``mesh_shape``."""
+    n_dev = math.prod(mesh_shape)
+    flops = float(fig["flops"])
     coll = fig["collectives"]
     res = {
         "arch": arch, "shape": shape_name,
-        "mesh": "x".join(str(s) for s in shape), "n_chips": n_dev,
-        "ok": True, "trace_s": round(time.time() - t0, 1),
+        "mesh": "x".join(str(s) for s in mesh_shape), "n_chips": n_dev,
+        "ok": True, "trace_s": round(trace_s, 1),
         "bytes_per_device": int(fig["arg_bytes"] + fig["temp_bytes"]),
         "temp_bytes": int(fig["temp_bytes"]),
         "arg_bytes": int(fig["arg_bytes"]),
@@ -440,7 +484,7 @@ def main(argv=None) -> None:
     ap.add_argument("--include-extra", action="store_true",
                     help="also run the sinnamon-engine cells")
     ap.add_argument("--full-depth", action="store_true",
-                    help="trace LM cells at full depth (slow)")
+                    help="trace LM and GNN cells at full depth (slow)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -461,11 +505,6 @@ def main(argv=None) -> None:
                 res = run_cell(arch, shape, multi_pod=mp,
                                full_depth=args.full_depth)
                 print(_line(tag, res), flush=True)
-            except WaitsFor12b as e:
-                res = {"arch": arch, "shape": shape,
-                       "mesh": "2x16x16" if mp else "16x16", "ok": False,
-                       "wait": True, "error": str(e)}
-                print(f"[WAIT] {tag}: {e}", flush=True)
             except Exception as e:                     # noqa: BLE001
                 res = {"arch": arch, "shape": shape,
                        "mesh": "2x16x16" if mp else "16x16", "ok": False,
@@ -479,10 +518,8 @@ def main(argv=None) -> None:
             json.dump(results, f, indent=1)
         print(f"wrote {args.out}")
     n_ok = sum(1 for r in results if r.get("ok"))
-    n_wait = sum(1 for r in results if r.get("wait"))
-    print(f"{n_ok}/{len(results)} cells OK, {n_wait} waiting "
-          f"({time.time() - t_start:.0f}s)")
-    if n_ok + n_wait < len(results):
+    print(f"{n_ok}/{len(results)} cells OK ({time.time() - t_start:.0f}s)")
+    if n_ok < len(results):
         raise SystemExit(1)
 
 

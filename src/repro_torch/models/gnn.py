@@ -30,10 +30,13 @@ under its names; ``leaves()`` keys them by the reference's paths.
 The mesh tooling's shape work is the reference's: ``graph_logical_axes``,
 ``abstract_params`` (the model on ``meta``) and ``logical_axes``.  The
 entry points take the reference's ``mesh`` / ``rules`` and constrain at its
-points (identities on a one-device mesh); the sharded model on a mesh of
-more than one device is ``models/gnn_sharded.py``, which waits for
-ROADMAP.md Queue 1 item 12b, so such a mesh raises
-``rules.WaitsFor12b`` (a ``NotImplementedError``).
+points (identities on a one-device mesh).  On a mesh of more than one
+device (DTensor parameters and batch, the reference's GSPMD-automatic
+path) DTensor has no sharding strategy for the edge loop's scatter-amax
+and ``index_add_``, so each device runs the loop on whole local tensors
+and the node update runs on DTensors.  The schedule that splits the
+nodes' channels and the edges over the mesh is
+``models/gnn_sharded.py``.
 """
 
 from __future__ import annotations
@@ -235,14 +238,6 @@ def logical_axes(cfg: GNNConfig) -> dict:
     return {"embed_in": L(None, None), "layers": layers,
             "ro1": L(None, None), "ro2": L(None, None),
             "force_w": L(None, None)}
-
-
-def _check_mesh(mesh) -> None:
-    if R.mesh_size(mesh) > 1:
-        raise R.WaitsFor12b(
-            "the GNN on a mesh of more than one device is the sharded GNN "
-            "(models/gnn_sharded.py), which waits for ROADMAP.md Queue 1 "
-            "item 12b")
 
 
 def init_params(generator, cfg: GNNConfig, dtype=torch.float32,
@@ -459,7 +454,41 @@ def edge_attention(f: Tensor, lp: dict, g: GraphBatch,
     the streaming segment softmax, through :class:`_EdgeLoop`."""
     names = [f"so2/{k}" for k in lp["so2"]] + ["rad1", "rad2", "wa1", "wa2"]
     ws = [*lp["so2"].values(), lp["rad1"], lp["rad2"], lp["wa1"], lp["wa2"]]
+    if R.mesh_size(mesh) > 1 and _is_dtensor(f):
+        return _edge_attention_replicated(f, ws, names, g, cfg, mesh, rules)
     return _EdgeLoop.apply(f, (g, cfg, names, mesh, rules), *ws)
+
+
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "_local_tensor")
+
+
+def _whole(x: Tensor, mesh) -> Tensor:
+    """A DTensor made whole on every device (replicated), as its local
+    tensor; its gradient, the same on every device, goes back to its
+    placement.  A plain tensor as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+
+
+def _edge_attention_replicated(f, ws, names, g, cfg, mesh, rules):
+    """:func:`edge_attention` of DTensors on a mesh of several devices:
+    DTensor has no sharding strategy for the edge loop's scatter-amax and
+    ``index_add_``, so each device runs the loop on whole local tensors
+    (every device the same work, as GSPMD's replicated node tensors
+    around the gather) and the output is placed back by ``rules``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    gl = g._replace(**{k: _whole(getattr(g, k), mesh)
+                       for k in ("edge_src", "edge_dst", "edge_vec")})
+    out = _EdgeLoop.apply(_whole(f, mesh), (gl, cfg, names, None, None),
+                          *(_whole(w, mesh) for w in ws))
+    out = DTensor.from_local(out, mesh, (Replicate(),) * mesh.ndim,
+                             run_check=False)
+    return R.constrain(out, mesh, (None, None, "gnn_c"), rules)
 
 
 def edge_attention_reference(f: Tensor, lp: dict, g: GraphBatch,
@@ -551,7 +580,6 @@ def forward(params: EquiformerV2, g: GraphBatch, cfg: GNNConfig, *,
     """Final node features [N, K, C].  With ``cfg.remat`` and gradients on,
     each layer is recomputed in the backward (``torch.utils.checkpoint``,
     non-reentrant)."""
-    _check_mesh(mesh)
     if cfg.dtype != "float32":
         raise ValueError(f"dtype {cfg.dtype!r}: the streaming softmax's "
                          f"accumulators are float32, as the reference's")

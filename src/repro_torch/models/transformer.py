@@ -28,8 +28,7 @@ arguments, with which the entry points run on DTensors and pin the
 reference's placements (``repro_torch.distributed.rules.constrain``) at the
 reference's points; ``repro_torch.launch.dryrun`` places every LM cell that
 way.  With ``mesh`` None or of one device they compute exactly what they
-compute without one.  The sharded GNN and compressed gradients wait for
-ROADMAP.md Queue 1 item 12b.
+compute without one.
 """
 
 from __future__ import annotations

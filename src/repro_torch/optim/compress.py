@@ -3,9 +3,11 @@
 worker keeps a residual; ``g + residual`` is quantised per tensor to int8
 with one scale, and the quantisation error is the next residual.
 
-``compressed_psum`` (the all-reduce of the int8 payload across workers)
-needs a collective over the mesh, which waits for the mesh tooling's
-second half (ROADMAP.md, Queue 1 item 12b).
+:func:`compressed_psum` all-reduces the int8 payload over one named axis
+of a ``DeviceMesh`` (the reference runs it inside ``shard_map``, which
+supplies the axis; the port takes the mesh beside the axis name): the
+scale is max-reduced first, so every worker dequantises alike, and the
+int8 values are summed as int32, which is exact.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.distributed import rules as R
 
 Tensor = torch.Tensor
 
@@ -42,8 +46,36 @@ def ef_compress_tree(grads: dict, residual: dict):
     return q, s, res
 
 
-def compressed_psum(grads: dict, residual: dict, axis_name: str):
-    raise NotImplementedError(
-        "compressed_psum needs a collective across workers on a mesh; it "
-        "is not ported yet (ROADMAP.md, Queue 1 item 12b: the mesh "
-        "tooling's second half)")
+def _all_reduce(t: Tensor, op: str, mesh, axis_name: str) -> Tensor:
+    """``t`` reduced with ``op`` over the mesh axis ``axis_name``; ``t``
+    itself over an axis of one device."""
+    if R.axis_size(mesh, axis_name) == 1:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+
+    dim = R.axis_names(mesh).index(axis_name)
+    return funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, dim)))
+
+
+def compressed_psum(grads: dict, residual: dict, axis_name: str, mesh):
+    """Error-feedback int8 all-reduce of this worker's gradients over the
+    axis ``axis_name`` of ``mesh``: (mean gradients f32, new residual),
+    dicts keyed as ``grads``.  Per tensor, as the reference: x = g + r;
+    scale = max(max-reduced max|x| / 127, 1e-12); q = clip(round(x /
+    scale), -127, 127) as int8; the new residual x - q·scale; the result
+    (Σ q as int32) · scale / n over the axis's n workers."""
+    mean, res = {}, {}
+    for k, g in grads.items():
+        x = g.to(torch.float32) + residual[k]
+        amax = _all_reduce(torch.max(torch.abs(x)).to(torch.float32),
+                           "max", mesh, axis_name)
+        scale = torch.maximum(torch.div(amax, torch.full_like(amax, 127.0)),
+                              torch.full_like(amax, 1e-12))
+        q = torch.clamp(torch.round(torch.div(x, scale)), -127,
+                        127).to(torch.int8)
+        res[k] = x - q.to(torch.float32) * scale
+        total = _all_reduce(q.to(torch.int32), "sum", mesh, axis_name)
+        n = _all_reduce(torch.ones((), dtype=torch.float32, device=x.device),
+                        "sum", mesh, axis_name)
+        mean[k] = torch.div(total.to(torch.float32) * scale, n)
+    return mean, res

@@ -8,8 +8,12 @@ reference's leaf paths that the optimiser and the train-state checkpoints
 ``loss.backward()`` into each parameter's ``.grad``; the step updates the
 parameters and the moments in place and frees the gradients.
 
-Cross-worker gradient compression (``compress_axis``) needs a collective
-over the mesh and waits for ROADMAP.md Queue 1 item 12b.
+With ``compress_axis`` (a mesh axis, with its ``mesh``) and a state that
+carries an error-feedback residual (``init_state(...,
+use_compression=True)``), the gradients are averaged over that axis by
+``optim.compress.compressed_psum`` before the update, and the new
+residual goes into the returned state, as the reference does inside
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compress
 
 
 class TrainState(NamedTuple):
@@ -50,18 +54,18 @@ def make_train_step(
     *,
     microbatches: int = 1,
     compress_axis: Optional[str] = None,
+    mesh=None,
 ):
     """Build ``train_step(state, batch) -> (state, metrics)``; metrics are
     ``loss_fn``'s (with one microbatch), ``loss``, ``grad_norm`` and
     ``lr``, 0-d tensors.  With ``microbatches`` > 1 the batch is split
     along its first axis, the f32 gradients are summed over the
     microbatches in order and divided by their count, as the reference's
-    ``lax.scan`` does, and so is the loss."""
-    if compress_axis is not None:
-        raise NotImplementedError(
-            "gradient compression across workers (compress_axis) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 12b: the mesh tooling's "
-            "second half)")
+    ``lax.scan`` does, and so is the loss.  ``compress_axis`` names the
+    axis of ``mesh`` over which each worker's gradients are averaged with
+    int8 error feedback (see the module's docstring)."""
+    if compress_axis is not None and mesh is None:
+        raise ValueError("compress_axis needs the mesh it names an axis of")
 
     def grads_of(params, batch):
         for t in params.parameters():
@@ -93,6 +97,10 @@ def make_train_step(
 
     def train_step(state: TrainState, batch):
         loss, metrics, grads = accumulate(state.params, batch)
+        residual = state.ef_residual
+        if compress_axis is not None and residual is not None:
+            grads, residual = compress.compressed_psum(
+                grads, residual, compress_axis, mesh)
         _, opt, opt_metrics = adamw.update(
             grads, state.opt, state.params.leaves(), opt_cfg)
         del grads
@@ -101,6 +109,6 @@ def make_train_step(
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
-        return TrainState(state.params, opt, state.ef_residual), metrics
+        return TrainState(state.params, opt, residual), metrics
 
     return train_step

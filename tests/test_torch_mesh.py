@@ -25,6 +25,7 @@ helpers, each family's abstract parameters and logical axes,
   and collective counts.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -309,8 +310,7 @@ def test_param_axes_follow_the_dimension():
 # meta
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [a for a in registry.ARCHS
-                                  if a != "equiformer-v2"])
+@pytest.mark.parametrize("arch", registry.ARCHS)
 def test_cell_meta_equals_reference(arch):
     jm = jmesh.single_device_mesh(("data", "model"))
     mod = registry.get(arch)
@@ -320,38 +320,63 @@ def test_cell_meta_equals_reference(arch):
 
 
 def test_gnn_cells_wait_for_item_12b():
+    """Item 12b's GNN cells: ``meta_for`` is the reference's (6 · edges ·
+    (rotations + SO(2) products) · layers, tokens = edges) for every
+    shape, and the sharded GNN's parameter specs are the reference's
+    ``_param_pspecs``."""
+    from repro.models import gnn_sharded as jgs
+    from repro_torch.models import gnn_sharded as tgs
+
     mod = registry.get("equiformer-v2")
-    with pytest.raises(NotImplementedError, match="12b"):
-        cells.meta_for(mod, mod.SHAPES["molecule"])
-    with pytest.raises(NotImplementedError, match="12b"):
-        cells.build_gnn(mod, mod.SHAPES["molecule"], None)
+    for name, shape in mod.SHAPES.items():
+        meta = cells.meta_for(mod, shape)
+        assert meta["arch_kind"] == "gnn_train", name
+        assert meta["tokens"] == shape["n_edges"], name
+    cfg = mod.full_config(mod.SHAPES["ogb_products"])
+    want = _jpaths(jgs._param_pspecs(cfg),
+                   lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    got = tgs.param_pspecs(cfg)
+    assert set(got) == set(want)
+    for k, spec in want.items():
+        spec = list(_spec(spec))
+        while spec and spec[-1] is None:        # canonical: trailing Nones
+            spec.pop()
+        assert got[k] == tuple(spec), k
 
 
 def test_gnn_waits_raise_their_own_class():
-    """What waits for item 12b raises ``rules.WaitsFor12b``, the one class
-    the CLI prints as ``[WAIT]``."""
-    from repro_torch.models import gnn as tg
+    """What waited for item 12b places: the SO(2) weights' rows over
+    ``model`` (``Shard(1)``), every other leaf and the data axes'
+    placements replicated; the edges split over the data axes major to
+    minor (``("pod", "data")`` on the multi-pod mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    mod = registry.get("equiformer-v2")
-    with pytest.raises(R.WaitsFor12b):
-        cells.meta_for(mod, mod.SHAPES["molecule"])
-    with pytest.raises(R.WaitsFor12b):
-        cells.build_gnn(mod, mod.SHAPES["molecule"], None)
-    with pytest.raises(R.WaitsFor12b):
-        tg._check_mesh(MESHES["16x16"])
-    assert issubclass(R.WaitsFor12b, NotImplementedError)
+    from repro_torch.models import gnn_sharded as tgs
+
+    cfg = registry.get("equiformer-v2").smoke_config()
+    for name in ("16x16", "2x16x16"):
+        mesh = MESHES[name]
+        sh = tgs.param_shardings(cfg, mesh)
+        model_dim = mesh.axis_names.index("model")
+        for k, pl in sh.items():
+            want = [Replicate()] * len(mesh.axis_names)
+            if k.startswith("layers/so2/"):
+                want[model_dim] = Shard(1)
+            assert list(pl) == want, (name, k)
+        assert tgs.data_axes(mesh) == tuple(
+            a for a in mesh.axis_names if a != "model")
 
 
 @pytest.mark.parametrize("raised,tag,code", [
-    (R.WaitsFor12b("waits for ROADMAP.md Queue 1 item 12b"), "[WAIT]", 0),
+    (ValueError("12288 edges do not split over 7"), "[FAIL]", 1),
     (NotImplementedError("Operator aten.index_add.default does not have a "
                          "sharding strategy registered"), "[FAIL]", 1),
     (RuntimeError("a broken cell"), "[FAIL]", 1)])
 def test_dryrun_cli_waits_only_for_item_12b(monkeypatch, capsys, raised, tag,
                                             code):
-    """Only ``WaitsFor12b`` is a ``[WAIT]``: any other error of a cell,
-    DTensor's ``NotImplementedError`` for a missing sharding strategy among
-    them, is a ``[FAIL]`` and makes the run exit 1."""
+    """Nothing waits any more: any error of a cell (a GNN cell's among
+    them, and DTensor's ``NotImplementedError`` for a missing sharding
+    strategy) is a ``[FAIL]`` and makes the run exit 1."""
     from repro_torch.launch import dryrun
 
     def run_cell(*a, **k):
@@ -399,6 +424,12 @@ def depth(arch, shape):
     ext, _, d = dryrun.trace(small, shape, *ms)
     full, _, _ = dryrun.trace(small, shape, *ms, full_depth=True)
     return {"ext": ext, "full": full, "traced": d["traced"]}
+
+mod = registry.get("equiformer-v2")
+fig, meta, _ = dryrun.trace(mod, mod.SHAPES["molecule"], (16, 16),
+                            ("data", "model"), n_layers=1)
+out["gnn"] = {"arg": fig["arg_bytes"], "temp": fig["temp_bytes"],
+              "counts": fig["collectives"]["counts"], "meta": meta}
 
 out["depth_train"] = depth("stablelm-12b",
                            {"kind": "lm_train", "batch": 4, "seq": 64})
@@ -496,3 +527,38 @@ def test_dryrun_depth_extrapolation_equals_full_depth(dryrun_out, case):
     assert ext["collectives"]["total"] == full["collectives"]["total"]
     if case == "depth_gemma":
         assert got["traced"] == ["1", "2", "1 global"]
+
+
+def test_dryrun_gnn_cell(dryrun_out):
+    """equiformer-v2 ``molecule`` through ``cells.build_gnn`` on a 16x16
+    fake world at 1 layer: argument bytes are the local shards of the
+    reference's placements (the sharded GNN's parameter specs, moments
+    alike, the node tensors whole and the edges over ``data``); the layer
+    gathers its carry once, again in its recompute and once in the
+    reduce-scatter's backward (3 all-gathers), reduce-scatters ``w_out``'s
+    product alike (3); the device holds well under 80 GB."""
+    from repro.models import gnn_sharded as jgs
+
+    got = dryrun_out["gnn"]
+    mod = jreg.get("equiformer-v2")
+    shape = mod.SHAPES["molecule"]
+    cfg = dataclasses.replace(mod.full_config(shape), n_layers=1)
+    mesh = MESHES["16x16"]
+    specs = _jpaths(jgs._param_pspecs(cfg),
+                    lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    params = _jpaths(jgnn.abstract_params(cfg))
+    state = 0
+    for k, ab in params.items():
+        n = ab.size // math.prod(mesh.shape[a] for a in _spec(specs[k])
+                                 if a is not None)
+        state += n * (ab.dtype.itemsize + 8)        # parameter, m and v
+    pn, pe, G = shape["pad_nodes"], shape["pad_edges"], shape["batch_graphs"]
+    graph = (pn * shape["d_feat"] * 4 + pn * 3 * 4 + pn * 4 + G * 4
+             + (pe // mesh.shape["data"]) * (4 + 4 + 12))
+    assert got["arg"] == state + 4 + graph
+    assert got["counts"]["all-gather"] == 3
+    assert got["counts"]["reduce-scatter"] == 3
+    assert got["arg"] + got["temp"] < 80e9
+    assert got["meta"] == jcells.build("equiformer-v2", "molecule",
+                                       jmesh.single_device_mesh(
+                                           ("data", "model"))).meta

@@ -368,11 +368,26 @@ def test_compression_matches_reference():
         np.testing.assert_allclose(float(ts[k]), float(js[k]), rtol=1e-6)
         np.testing.assert_allclose(tr[k].numpy(), np.asarray(jr[k]),
                                    rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tcompress.compressed_psum({}, {}, "pod")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # compressed_psum over an axis of one worker: quantise -> dequantise
+    # (the max-reduce and the int32 sum are identities there), bit for bit
+    mean, res = tcompress.compressed_psum(
+        {k: torch.from_numpy(v) for k, v in g.items()},
+        {k: torch.from_numpy(v) for k, v in r.items()}, "pod",
+        _OneWorker())
+    for k in g:
+        _bits(mean[k].numpy(),
+              tcompress.dequantize(tq[k], ts[k]).numpy())
+        _bits(res[k].numpy(), tr[k].numpy())
+    with pytest.raises(ValueError, match="mesh"):
         tloop.make_train_step(lambda p, b: (None, {}),
                               tadamw.AdamWConfig(), compress_axis="pod")
+
+
+class _OneWorker:
+    """A mesh of one ``pod`` (an axis of one device issues no
+    collective)."""
+    axis_names = ("pod",)
+    shape = {"pod": 1}
 
 
 # -- 3. the train step --------------------------------------------------------
