@@ -49,6 +49,8 @@ import torch
 
 from repro_torch.core import bitindex, sketch
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import span as _span
 from repro_torch.storage import vecstore
 
 Tensor = torch.Tensor
@@ -231,10 +233,13 @@ def _select(mask: Optional[Tensor], slots: Tensor, *rows: Tensor):
 
 def insert_batch_masked(state: SinnamonState, spec: EngineSpec, slots: Tensor,
                         ext_ids: Tensor, idx: Tensor, val: Tensor,
-                        mask: Optional[Tensor] = None) -> SinnamonState:
+                        mask: Optional[Tensor] = None,
+                        trace=None) -> SinnamonState:
     """Vectorized batch insert (Algorithm 5); ``mask=False`` entries are
     no-ops (``mask=None`` keeps every entry).  Updates ``state`` in place
-    and returns it.
+    and returns it.  A device-timed ``trace`` gets the spans ``encode``,
+    ``bitmap`` (the membership scatter), ``sketch`` (the cells' merge)
+    and ``csr`` (raw rows, ``active``, ``ids``).
 
     ``slots`` must be unique and free (the host allocator guarantees it).  A
     clean slot gets the document's exact sketch column; a dirty (recycled)
@@ -242,30 +247,35 @@ def insert_batch_masked(state: SinnamonState, spec: EngineSpec, slots: Tensor,
     every value it ever saw.  Membership bits are a scatter-add of word
     masks: distinct slots touch distinct bits, so the add is a bitwise OR.
     """
-    u_cols, l_cols = sketch.encode_batch(state.mappings, spec.m, idx, val,
-                                         dtype=spec.dtype,
-                                         positive_only=spec.upper_only)
-    rows, words, bitm = _bit_scatter_operands(spec, slots, idx, mask)
-    state.bits.index_put_((rows, words), bitm, accumulate=True)
+    with _span(trace, "encode"):
+        u_cols, l_cols = sketch.encode_batch(state.mappings, spec.m, idx, val,
+                                             dtype=spec.dtype,
+                                             positive_only=spec.upper_only)
+    with _span(trace, "bitmap"):
+        rows, words, bitm = _bit_scatter_operands(spec, slots, idx, mask)
+        state.bits.index_put_((rows, words), bitm, accumulate=True)
 
-    s, ext_ids, idx, val, u_cols = _select(mask, slots, ext_ids, idx, val,
-                                           _ints(u_cols))
-    l_cols = None if l_cols is None else _select(mask, slots,
-                                                 _ints(l_cols))[1]
-    was_dirty = state.dirty[s][None, :]
-    for cols, side, upper in ((u_cols, state.u, True),
-                              (l_cols, state.l, False)):
-        if side is None:
-            continue
-        new = cols.T.contiguous().view(side.dtype)             # [m, b]
-        old = _ints(side)[:, s].view(side.dtype)
-        merged = _merge_cells(old, new, upper)
-        _ints(side)[:, s] = torch.where(was_dirty, _ints(merged), _ints(new))
+    with _span(trace, "sketch"):
+        s, ext_ids, idx, val, u_cols = _select(mask, slots, ext_ids, idx,
+                                               val, _ints(u_cols))
+        l_cols = None if l_cols is None else _select(mask, slots,
+                                                     _ints(l_cols))[1]
+        was_dirty = state.dirty[s][None, :]
+        for cols, side, upper in ((u_cols, state.u, True),
+                                  (l_cols, state.l, False)):
+            if side is None:
+                continue
+            new = cols.T.contiguous().view(side.dtype)         # [m, b]
+            old = _ints(side)[:, s].view(side.dtype)
+            merged = _merge_cells(old, new, upper)
+            _ints(side)[:, s] = torch.where(was_dirty, _ints(merged),
+                                            _ints(new))
 
-    if state.store.capacity:            # a tiered placeholder holds no rows
-        vecstore.write(state.store, s, idx, val)
-    state.active[s] = True
-    state.ids[s] = ext_ids.to(torch.int64)
+    with _span(trace, "csr"):
+        if state.store.capacity:        # a tiered placeholder holds no rows
+            vecstore.write(state.store, s, idx, val)
+        state.active[s] = True
+        state.ids[s] = ext_ids.to(torch.int64)
     return state
 
 
@@ -518,12 +528,14 @@ def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
                     q_val: Tensor, kprime: int, budget: Optional[int] = None,
                     filter_mask: Optional[Tensor] = None, score_fn=None,
                     backend: Optional[str] = None,
-                    use_kernel: Optional[bool] = None):
+                    use_kernel: Optional[bool] = None, trace=None):
     """Batched candidate generation -> (upper_bounds f32[B, kprime],
     slots int32[B, kprime]) in (upper bound desc, slot asc) order, the same
     order for every backend (``reference | grouped | fused``, or the alias
     ``pallas``; None -> see ``ops.resolve_backend``).  ``use_kernel`` is
-    passed to the fused path's kernel.
+    passed to the fused path's kernel.  A device-timed ``trace`` gets the
+    spans ``sketch_scan`` (the scores or per-tile candidates) and
+    ``topk_merge`` (the selection of the k').
 
     ``score_fn`` overrides the backend with a dense scorer.  It is
     batch-native, ``score_fn(state, spec, q_idx, q_val, budget) ->
@@ -531,20 +543,26 @@ def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
     are gated and cut with ``topk_desc``, the ``lax.top_k`` order.
     """
     from repro_torch.kernels import ops as _ops
-    from repro_torch.kernels.sinnamon_score import topk_desc
+    from repro_torch.kernels.sinnamon_score import merge_tile_topk, topk_desc
 
     ok = state.active if filter_mask is None else (state.active & filter_mask)
     backend = _ops.resolve_backend(backend)
     if score_fn is None and backend == "fused":
-        return _ops.sinnamon_topk_batch(state, spec, q_idx, q_val, kprime,
-                                        budget=budget, ok=ok,
-                                        use_kernel=use_kernel)
-    if score_fn is not None:
-        s = score_fn(state, spec, q_idx, q_val, budget)
-    else:
-        s = score_batch(state, spec, q_idx, q_val, budget,
-                        grouped=backend == "grouped")
-    return topk_desc(torch.where(ok[None, :], s, -torch.inf), kprime)
+        with _span(trace, "sketch_scan"):
+            vals, slots = _ops.sinnamon_tile_topk(
+                state, spec, q_idx, q_val, kprime, budget=budget, ok=ok,
+                use_kernel=use_kernel)
+        with _span(trace, "topk_merge"):
+            return merge_tile_topk(vals, slots, kprime)
+    with _span(trace, "sketch_scan"):
+        if score_fn is not None:
+            s = score_fn(state, spec, q_idx, q_val, budget)
+        else:
+            s = score_batch(state, spec, q_idx, q_val, budget,
+                            grouped=backend == "grouped")
+        s = torch.where(ok[None, :], s, -torch.inf)
+    with _span(trace, "topk_merge"):
+        return topk_desc(s, kprime)
 
 
 def rerank_topk(state: SinnamonState, cand_scores: Tensor, cand_slots: Tensor,
@@ -604,14 +622,18 @@ def rerank_topk_rows(state: SinnamonState, cand_scores: Tensor,
 def search_batch(state, spec, q_idx, q_val, k, kprime, budget=None,
                  filter_mask=None, score_fn=None,
                  backend: Optional[str] = None,
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None, trace=None):
     """Batched search [B, Lq] -> (ids int64[B, k], scores f32[B, k],
-    slots int32[B, k]); ``score_fn`` as in :func:`topk_candidates`."""
+    slots int32[B, k]); ``score_fn`` as in :func:`topk_candidates`.  A
+    device-timed ``trace`` gets :func:`topk_candidates`'s spans and
+    ``rerank``."""
     cand_scores, cand_slots = topk_candidates(
         state, spec, q_idx, q_val, kprime, budget, filter_mask,
-        score_fn=score_fn, backend=backend, use_kernel=use_kernel)
-    return rerank_topk(state, cand_scores, cand_slots, q_idx, q_val, k,
-                       use_kernel=use_kernel)
+        score_fn=score_fn, backend=backend, use_kernel=use_kernel,
+        trace=trace)
+    with _span(trace, "rerank"):
+        return rerank_topk(state, cand_scores, cand_slots, q_idx, q_val, k,
+                           use_kernel=use_kernel)
 
 
 def search_batch_sketch(state, spec, q_idx, q_val, k, budget=None,
@@ -671,6 +693,14 @@ class _WritePathMetrics:
         if ndocs:
             self._batch.observe(ndocs)
             self._docs["delete" if op.startswith("delete") else "insert"].inc(ndocs)
+
+
+def _write_trace(op: str, device) -> Optional[obs_trace.Trace]:
+    """A device-timed trace of one write call, or None while the
+    process-global registry is the metrics-off ``NULL_REGISTRY``."""
+    if isinstance(obs_metrics.get_registry(), obs_metrics.NullRegistry):
+        return None
+    return obs_trace.Trace(op, device, device_timed=True)
 
 
 def pad_sparse(idx, val, width: int):
@@ -767,7 +797,12 @@ class SinnamonIndex:
     without one); the tests pass ``device="cpu"``.  Mutations hold
     ``_state_lock`` to write and searches to read (:class:`StateLock`);
     every mutation
-    reports to the write-path metrics of ``repro_torch.obs``.
+    reports to the write-path metrics of ``repro_torch.obs``, and records
+    an insert records a device-timed ``insert_many`` trace
+    (``repro_torch.obs.trace``) with the spans ``prep``, ``id_map``,
+    ``encode``, ``bitmap``, ``sketch``, ``csr``, ``id_map``; a search given
+    one fills a ``query`` trace with ``admission``, ``sketch_scan``,
+    ``topk_merge``, ``rerank``, ``to_host``.
     """
 
     def __init__(self, spec: EngineSpec, device=None):
@@ -831,38 +866,45 @@ class SinnamonIndex:
     def _insert_rows(self, ext_ids, idx_batch, val_batch) -> int:
         """The insert of :meth:`insert_many`; returns the number of
         documents written (a repeated id counts once)."""
-        ext_ids = ext_ids.tolist() if isinstance(ext_ids, torch.Tensor) \
-            else [int(e) for e in ext_ids]
-        idx_t = self._rows(idx_batch, torch.int32, -1)
-        val_t = self._rows(val_batch, torch.float32, 0)
-        if len(set(ext_ids)) != len(ext_ids):
-            # Sequential overwrite semantics: only the LAST occurrence of a
-            # duplicated id survives.
-            last = {e: pos for pos, e in enumerate(ext_ids)}
-            keep = sorted(last.values())
-            ext_ids = [ext_ids[p] for p in keep]
-            sel = torch.tensor(keep, device=self.device)
-            idx_t, val_t = idx_t[sel], val_t[sel]
+        trace = _write_trace("insert_many", self.device)
+        with _span(trace, "prep"):
+            ext_ids = ext_ids.tolist() if isinstance(ext_ids, torch.Tensor) \
+                else [int(e) for e in ext_ids]
+            idx_t = self._rows(idx_batch, torch.int32, -1)
+            val_t = self._rows(val_batch, torch.float32, 0)
+            if len(set(ext_ids)) != len(ext_ids):
+                # Sequential overwrite semantics: only the LAST occurrence
+                # of a duplicated id survives.
+                last = {e: pos for pos, e in enumerate(ext_ids)}
+                keep = sorted(last.values())
+                ext_ids = [ext_ids[p] for p in keep]
+                sel = torch.tensor(keep, device=self.device)
+                idx_t, val_t = idx_t[sel], val_t[sel]
+        bn = len(ext_ids)
         with self._state_lock.write():
-            for e in ext_ids:
-                if e in self._id2slot:      # overwrite: drop the stale copy
-                    self.delete(e)
-            bn = len(ext_ids)
-            while len(self._free) < bn:
-                self.grow(self.spec.capacity * 2)
-            slots = np.array([self._free.pop() for _ in range(bn)], np.int32)
-            self._write_insert(slots, ext_ids, idx_t, val_t)
-            for eid, slot in zip(ext_ids, slots):
-                self._id2slot[eid] = int(slot)
+            with _span(trace, "id_map"):
+                for e in ext_ids:
+                    if e in self._id2slot:  # overwrite: drop the stale copy
+                        self.delete(e)
+                while len(self._free) < bn:
+                    self.grow(self.spec.capacity * 2)
+                slots = np.array([self._free.pop() for _ in range(bn)],
+                                 np.int32)
+            self._write_insert(slots, ext_ids, idx_t, val_t, trace)
+            with _span(trace, "id_map"):
+                for eid, slot in zip(ext_ids, slots):
+                    self._id2slot[eid] = int(slot)
+        if trace is not None:
+            trace.finish()
         return bn
 
     def _write_insert(self, slots: np.ndarray, ext_ids, idx_t: Tensor,
-                      val_t: Tensor) -> None:
+                      val_t: Tensor, trace=None) -> None:
         """Write documents into free ``slots`` (the state lock held)."""
         insert_batch_masked(
             self.state, self.spec, self._tensor(slots, torch.int32),
             self._tensor(np.asarray(ext_ids, np.int64), torch.int64),
-            idx_t, val_t)
+            idx_t, val_t, trace=trace)
 
     def _write_delete(self, slots) -> None:
         """Clear the documents at ``slots`` (the state lock held)."""
@@ -918,26 +960,34 @@ class SinnamonIndex:
 
     def search(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
                budget: Optional[int] = None, filter_mask=None, score_fn=None,
-               backend: Optional[str] = None):
+               backend: Optional[str] = None, trace=None):
         ids, scores = self.search_many(np.asarray(q_idx)[None],
                                        np.asarray(q_val)[None], k, kprime,
-                                       budget, filter_mask, score_fn, backend)
+                                       budget, filter_mask, score_fn, backend,
+                                       trace=trace)
         return ids[0], scores[0]
 
     def search_many(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
                     budget: Optional[int] = None, filter_mask=None,
-                    score_fn=None, backend: Optional[str] = None):
+                    score_fn=None, backend: Optional[str] = None,
+                    trace=None):
         """Batched search: q_idx/q_val [B, Lq] -> (ids int64[B, k],
         scores f32[B, k]) as numpy arrays.  ``score_fn`` (batch-native, see
-        :func:`topk_candidates`) overrides the backend."""
+        :func:`topk_candidates`) overrides the backend.  A device-timed
+        ``trace`` (the caller finishes it) gets the spans ``admission``,
+        ``sketch_scan``, ``topk_merge``, ``rerank`` and ``to_host`` (the
+        blocking copy of the answers)."""
         k, kprime = self._sizes(k, kprime)
         with self._state_lock.read():
+            with _span(trace, "admission"):
+                qi = self._tensor(q_idx, torch.int32)
+                qv = self._tensor(q_val, torch.float32)
             ids, scores, _ = search_batch(
-                self.state, self.spec, self._tensor(q_idx, torch.int32),
-                self._tensor(q_val, torch.float32), k, kprime, budget,
+                self.state, self.spec, qi, qv, k, kprime, budget,
                 self._filter(filter_mask), score_fn=score_fn,
-                backend=self._backend(backend))
-            return ids.cpu().numpy(), scores.cpu().numpy()
+                backend=self._backend(backend), trace=trace)
+            with _span(trace, "to_host"):
+                return ids.cpu().numpy(), scores.cpu().numpy()
 
     def search_many_sketch(self, q_idx, q_val, k: int,
                            budget: Optional[int] = None,
@@ -1086,12 +1136,13 @@ class TieredSinnamonIndex(SinnamonIndex):
                               device=self.device)
 
     # -- streaming updates ---------------------------------------------------
-    def _write_insert(self, slots, ext_ids, idx_t, val_t) -> None:
+    def _write_insert(self, slots, ext_ids, idx_t, val_t,
+                      trace=None) -> None:
         # Host backing first (write-through), its chunks pinned until the
         # sketch/bitmap update of this batch is issued.
         chunks = self.tiered.write_rows(slots, idx_t, val_t, pin=True)
         try:
-            super()._write_insert(slots, ext_ids, idx_t, val_t)
+            super()._write_insert(slots, ext_ids, idx_t, val_t, trace)
         finally:
             self.tiered.unpin(chunks)
 
@@ -1105,21 +1156,28 @@ class TieredSinnamonIndex(SinnamonIndex):
     # -- retrieval -----------------------------------------------------------
     def search_many(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
                     budget: Optional[int] = None, filter_mask=None,
-                    score_fn=None, backend: Optional[str] = None):
+                    score_fn=None, backend: Optional[str] = None,
+                    trace=None):
         """Batched search: candidates, a host sync of their slots that
-        drives promotion, then the rows-based rerank."""
+        drives promotion, then the rows-based rerank.  A device-timed
+        ``trace`` gets the resident index's spans with ``prefetch`` (the
+        slots' sync, promotion and row gather) before ``rerank``."""
         k, kprime = self._sizes(k, kprime)
         with self._state_lock.read():
-            qi = self._tensor(q_idx, torch.int32)
-            qv = self._tensor(q_val, torch.float32)
+            with _span(trace, "admission"):
+                qi = self._tensor(q_idx, torch.int32)
+                qv = self._tensor(q_val, torch.float32)
             ub, slots = topk_candidates(
                 self.state, self.spec, qi, qv, kprime, budget,
                 self._filter(filter_mask), score_fn=score_fn,
-                backend=self._backend(backend))
-            ridx, rval = self.tiered.gather_rows(slots)
-            ids, scores, _ = rerank_topk_rows(self.state, ub, slots, ridx,
-                                              rval, qi, qv, k)
-            return ids.cpu().numpy(), scores.cpu().numpy()
+                backend=self._backend(backend), trace=trace)
+            with _span(trace, "prefetch"):
+                ridx, rval = self.tiered.gather_rows(slots)
+            with _span(trace, "rerank"):
+                ids, scores, _ = rerank_topk_rows(self.state, ub, slots,
+                                                  ridx, rval, qi, qv, k)
+            with _span(trace, "to_host"):
+                return ids.cpu().numpy(), scores.cpu().numpy()
 
     # -- capacity / maintenance ----------------------------------------------
     def _grow(self, new_capacity: int) -> None:

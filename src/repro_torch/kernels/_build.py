@@ -8,6 +8,10 @@ tests import every module of the package on machines without ``nvcc``.
 
 Failures raise: a missing ``nvcc``, a compiler error or a library that does
 not load is a :class:`KernelBuildFailure`, never a silent fallback.
+
+Each first load in a process records a ``kernel_load`` trace
+(``repro_torch.obs.trace``): one span named after the kernel, the host
+time to build it (when ``nvcc`` runs) and open its library.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -122,12 +129,20 @@ def load(name: str) -> ctypes.CDLL:
     with _LOAD_LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            path = build([name])[name].library
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as e:
-                raise KernelBuildFailure(f"cannot load {path}: {e}") from e
+            trace = None
+            if not isinstance(obs_metrics.get_registry(),
+                              obs_metrics.NullRegistry):
+                trace = obs_trace.Trace("kernel_load", device_timed=True)
+            with obs_trace.span(trace, name):
+                path = build([name])[name].library
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise KernelBuildFailure(f"cannot load {path}: {e}") \
+                        from e
             _LOADED[name] = lib
+            if trace is not None:
+                trace.finish()
     return lib
 
 

@@ -139,18 +139,6 @@ def sinnamon_tile_topk(state, spec, q_idx, q_val, kprime: int, *,
         use_kernel=use_kernel)
 
 
-def sinnamon_topk_batch(state, spec, q_idx, q_val, kprime: int, *,
-                        budget: Optional[int] = None,
-                        ok: Optional[Tensor] = None,
-                        use_kernel: Optional[bool] = None):
-    """Fused candidate generation: (vals f32[B, kprime],
-    slots int32[B, kprime]) in (upper bound desc, slot asc) order."""
-    vals, slots = sinnamon_tile_topk(state, spec, q_idx, q_val, kprime,
-                                     budget=budget, ok=ok,
-                                     use_kernel=use_kernel)
-    return _sinn.merge_tile_topk(vals, slots, kprime)
-
-
 def sinnamon_score_batch(state, qv: Tensor, rows: Tensor,
                          brows: Tensor) -> Tensor:
     """Kernel C over a query batch: Algorithm 6 upper bounds f32[B, C],

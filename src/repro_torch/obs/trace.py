@@ -2,12 +2,24 @@
 
 Two levels of tracing live here:
 
-* `Trace` — a flat list of named spans recorded with a context manager;
-  the serving layer opens one per sampled query on the index's device, and
-  on a CUDA device each span opens and closes with
-  ``torch.cuda.synchronize(device)`` so device work is attributed to the
-  stage that launched it (see `QueryServer._search_staged`); on the CPU,
-  where torch runs eagerly, a span syncs nothing.
+* `Trace` — a flat list of named spans recorded with a context manager,
+  in one of two modes:
+
+  - *synced* (the default): the serving layer opens one per sampled query
+    on the index's device, and on a CUDA device each span opens and closes
+    with ``torch.cuda.synchronize(device)`` so device work is attributed
+    to the stage that launched it (see `QueryServer._search_staged`); on
+    the CPU, where torch runs eagerly, a span syncs nothing.
+  - *device-timed* (``device_timed=True``): nothing is synced.  Each span
+    keeps its host start and its host duration (the time to issue its
+    work); on a CUDA device a timing event recorded on the current stream
+    at each span boundary (neighbouring spans share one) gives its device
+    duration, read (never waited for) once the events have completed,
+    when the trace is read.  The query path, the insert path and the
+    kernel loads record one such trace per call; :meth:`Trace.finish`
+    keeps it in a bounded per-operation ring that :func:`recent` reads.  While ``torch.profiler`` records, each span
+    also opens the range ``repro.<op>.<span>``, so the stages sit on the
+    profiler's clock beside the kernels.
 * `TraceContext` — the *propagated* per-request context: created
   at the front door (`ServingFrontend.submit`) or at `QueryServer.query*`,
   threaded through quota check → admission queue → batch assembly → device
@@ -20,13 +32,17 @@ Two levels of tracing live here:
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
+import sys
 import threading
 import time
+from collections import deque
 from typing import Optional
 
-__all__ = ["Span", "Trace", "TraceContext", "new_trace_id"]
+__all__ = ["RING", "Span", "Trace", "TraceContext", "clear", "new_trace_id",
+           "profiler_range", "recent", "span"]
 
 _trace_counter = itertools.count(1)
 _trace_lock = threading.Lock()
@@ -40,14 +56,25 @@ def new_trace_id() -> str:
 
 
 class Span:
-    __slots__ = ("name", "ms")
+    """One stage of a `Trace`: its host duration ``ms``, its host start
+    ``start_ms`` (from the trace's start) and, on a device-timed trace on
+    a CUDA device, its device duration ``device_ms`` (None until the
+    stage's events have completed, and on the CPU)."""
 
-    def __init__(self, name: str, ms: float):
+    __slots__ = ("name", "ms", "start_ms", "device_ms", "_ev")
+
+    def __init__(self, name: str, ms: float,
+                 start_ms: Optional[float] = None,
+                 device_ms: Optional[float] = None, _ev=None):
         self.name = name
         self.ms = ms
+        self.start_ms = start_ms
+        self.device_ms = device_ms
+        self._ev = _ev              # (start, end) timing events, until read
 
     def __repr__(self) -> str:
-        return f"Span({self.name!r}, {self.ms:.3f}ms)"
+        dev = "" if self.device_ms is None else f", device {self.device_ms:.3f}ms"
+        return f"Span({self.name!r}, {self.ms:.3f}ms{dev})"
 
 
 def _sync(device) -> None:
@@ -55,6 +82,30 @@ def _sync(device) -> None:
     if device is not None and getattr(device, "type", None) == "cuda":
         import torch
         torch.cuda.synchronize(device)
+
+
+def _profiling() -> bool:
+    """True while ``torch.profiler`` records (one flag read; False when
+    torch is not loaded)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd.profiler._is_profiler_enabled
+
+
+def profiler_range(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else a no-op context."""
+    if _profiling():
+        import torch
+        return torch.profiler.record_function(name)
+    return _NOSPAN
+
+
+_NOSPAN = contextlib.nullcontext()
+
+
+def span(trace: Optional["Trace"], name: str):
+    """``trace.span(name)``, or a no-op context without a trace."""
+    return _NOSPAN if trace is None else trace.span(name)
 
 
 class _SpanCtx:
@@ -71,38 +122,204 @@ class _SpanCtx:
 
     def __exit__(self, exc_type, exc, tb):
         _sync(self._trace.device)
+        t1 = time.perf_counter()
         self._trace.spans.append(
-            Span(self._name, (time.perf_counter() - self._t0) * 1e3)
-        )
+            Span(self._name, (t1 - self._t0) * 1e3,
+                 start_ms=(self._t0 - self._trace.t0) * 1e3))
         return False
 
 
+class _TimedSpanCtx:
+    """A span of a device-timed trace: no sync; a timing event at each
+    boundary on a CUDA device."""
+
+    __slots__ = ("_trace", "_name", "_t0", "_range")
+
+    def __init__(self, trace: "Trace", name: str):
+        self._trace = trace
+        self._name = name
+        self._range = None
+
+    def __enter__(self):
+        tr = self._trace
+        if _profiling():
+            self._range = profiler_range(f"repro.{tr.name}.{self._name}")
+            self._range.__enter__()
+        if tr._stream is not None and tr._last is None:
+            tr._last = tr._record()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        tr = self._trace
+        ev0 = tr._last
+        if ev0 is not None:
+            tr._last = tr._record()
+        t1 = time.perf_counter()
+        tr.spans.append(Span(self._name, (t1 - self._t0) * 1e3,
+                             (self._t0 - tr.t0) * 1e3, None,
+                             None if ev0 is None else (ev0, tr._last)))
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
+
+
+# -- timing events: a small pool per CUDA device --------------------------------
+
+#: Events kept for reuse per device; more than this are let go once read.
+POOL = 1024
+
+_EVENTS: dict = {}
+_STREAMS: dict = {}
+
+
+def _current_stream(index: int):
+    """The current stream of CUDA device ``index``: ``torch.cuda.current_stream``
+    builds a new ``Stream`` object at every call, so the objects are kept by
+    the stream's key and only the key is read."""
+    import torch
+    key = torch._C._cuda_getCurrentStream(index)
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS[key] = torch.cuda.current_stream(index)
+    return stream
+
+
+def _take_event(index: int):
+    pool = _EVENTS.get(index)
+    if pool:
+        return pool.pop()
+    import torch
+    return torch.cuda.Event(enable_timing=True)
+
+
 class Trace:
-    """Named collection of timed spans for one operation.  With a CUDA
-    ``device`` (a ``torch.device``) each span is device-synced."""
+    """Named collection of timed spans for one operation.
 
-    __slots__ = ("name", "spans", "device")
+    Synced (the default): with a CUDA ``device`` (a ``torch.device``) each
+    span is device-synced.  Device-timed (``device_timed=True``): no span
+    syncs; on a CUDA device each span also gets a device duration from
+    timing events on the device's current stream, where a span opens at
+    the previous span's closing event, so device work queued between two
+    spans counts to the later one (spans of such a trace do not nest).
+    The durations are read once the trace's last event has completed,
+    when :func:`recent` or a `TraceContext` that imported the trace is
+    read, never on the traced call.  ``trace_id`` links the trace to a
+    request's `TraceContext`.
+    """
 
-    def __init__(self, name: str = "query", device=None):
+    __slots__ = ("name", "spans", "device", "device_timed", "t0", "trace_id",
+                 "_stream", "_index", "_last", "_events")
+
+    def __init__(self, name: str = "query", device=None, *,
+                 device_timed: bool = False, trace_id: Optional[str] = None):
         self.name = name
         self.spans: list[Span] = []
         self.device = device
+        self.device_timed = device_timed
+        self.t0 = time.perf_counter()
+        self.trace_id = trace_id
+        self._stream = None
+        self._last = None           # the last boundary's event
+        self._events: list = []     # every event recorded, to give back
+        if device_timed and getattr(device, "type", None) == "cuda":
+            import torch
+            self._index = device.index if device.index is not None \
+                else torch.cuda.current_device()
+            self._stream = _current_stream(self._index)
 
-    def span(self, name: str) -> _SpanCtx:
+    def span(self, name: str):
         """Context manager timing one stage; appends a `Span` on exit."""
+        if self.device_timed:
+            return _TimedSpanCtx(self, name)
         return _SpanCtx(self, name)
+
+    def _record(self):
+        """A timing event recorded now on the trace's stream."""
+        ev = _take_event(self._index)
+        ev.record(self._stream)
+        self._events.append(ev)
+        return ev
+
+    def _resolve(self) -> bool:
+        """Read every device duration if the trace's last event has
+        completed (the stream runs its events in order), and give the
+        events back to the pool; True when nothing is left to read.
+        Never waits."""
+        if not self._events:
+            return True
+        if not self._events[-1].query():
+            return False
+        for s in self.spans:
+            if s._ev is not None:
+                ev0, ev1 = s._ev
+                s.device_ms = ev0.elapsed_time(ev1)
+                s._ev = None
+        pool = _EVENTS.setdefault(self._index, [])
+        pool.extend(self._events[:max(0, POOL - len(pool))])
+        self._events = []
+        self._last = None
+        return True
+
+    def finish(self) -> "Trace":
+        """Seal a device-timed trace and keep it in the ring of its
+        operation (see :func:`recent`); reads nothing."""
+        with _ring_lock:
+            ring = _rings.get(self.name)
+            if ring is None:
+                ring = _rings[self.name] = (deque(maxlen=RING),
+                                            deque(maxlen=RING))
+            ring[0].append(self)
+            if self._events:
+                ring[1].append(self)
+        return self
 
     def total_ms(self) -> float:
         return sum(s.ms for s in self.spans)
 
     def stage_ms(self) -> dict:
-        return {s.name: s.ms for s in self.spans}
+        """{stage: host ms}; repeated stage names accumulate."""
+        out: dict = {}
+        for s in self.spans:
+            out[s.name] = out.get(s.name, 0.0) + s.ms
+        return out
 
     def as_dict(self) -> dict:
         return {
             "name": self.name,
             "spans": [{"stage": s.name, "ms": round(s.ms, 4)} for s in self.spans],
         }
+
+
+# -- the ring of finished device-timed traces ---------------------------------------
+
+#: Traces kept per operation name (``query``, ``insert_many``, ...).
+RING = 8192
+
+_rings: dict = {}               # op -> (kept traces, kept traces left to read)
+_ring_lock = threading.Lock()
+
+
+def recent(op: str) -> list:
+    """The kept traces of operation ``op``, oldest first (at most
+    :data:`RING`), with the device durations read of every trace whose
+    events have completed."""
+    with _ring_lock:
+        ring = _rings.get(op)
+        if ring is None:
+            return []
+        kept, unread = ring
+        for _ in range(len(unread)):
+            tr = unread.popleft()
+            if not tr._resolve():
+                unread.append(tr)
+        return list(kept)
+
+
+def clear() -> None:
+    """Drop every kept trace."""
+    with _ring_lock:
+        _rings.clear()
 
 
 class _CtxSpan:
@@ -127,8 +344,11 @@ class TraceContext:
     """One request's propagated trace: id, stage timings, annotations.
 
     Stages are ``(name, start_ms, dur_ms)`` with ``start_ms`` relative to
-    context creation (``None`` for sub-spans imported from a staged
-    `Trace`, which only carry durations).  A context is built up by exactly
+    context creation (``None`` where a stage was timed without a start).
+    Sub-spans imported from a `Trace` keep their host starts and, from a
+    device-timed trace, their device durations, read when the context is
+    (:meth:`to_dict`) once the trace's events have completed.  A context is
+    built up by exactly
     one thread at a time (submit thread, then the dispatcher) — the
     hand-off happens through the admission queue, so no locking is needed.
 
@@ -139,7 +359,8 @@ class TraceContext:
     """
 
     __slots__ = ("trace_id", "tenant", "ts", "_t0", "stages",
-                 "annotations", "outcome", "error", "total_ms")
+                 "annotations", "outcome", "error", "total_ms", "_spans",
+                 "_traces")
 
     def __init__(self, tenant: str = "default",
                  trace_id: Optional[str] = None):
@@ -152,6 +373,8 @@ class TraceContext:
         self.outcome: Optional[str] = None
         self.error: Optional[str] = None
         self.total_ms: Optional[float] = None
+        self._spans: dict = {}               # stage index -> timed Span
+        self._traces: list = []              # device-timed traces imported
 
     # -- recording -----------------------------------------------------------
     def stage(self, name: str) -> _CtxSpan:
@@ -172,9 +395,17 @@ class TraceContext:
         self.annotations.update(fields)
 
     def add_trace(self, trace: Trace, prefix: str = "") -> None:
-        """Import a staged `Trace`'s spans as sub-stages (duration only)."""
+        """Import a `Trace`'s spans as sub-stages, with their host starts
+        (and a device-timed trace's device durations, once read)."""
+        base = (trace.t0 - self._t0) * 1e3
+        if trace.device_timed:
+            self._traces.append(trace)
         for s in trace.spans:
-            self.stages.append((prefix + s.name, None, s.ms))
+            if trace.device_timed:
+                self._spans[len(self.stages)] = s
+            self.stages.append((prefix + s.name,
+                                None if s.start_ms is None
+                                else base + s.start_ms, s.ms))
 
     def finish(self, outcome: str, total_ms: Optional[float] = None,
                error: Optional[str] = None) -> "TraceContext":
@@ -195,6 +426,10 @@ class TraceContext:
         return out
 
     def to_dict(self) -> dict:
+        if self._traces:
+            with _ring_lock:
+                for tr in self._traces:
+                    tr._resolve()
         d = {
             "trace_id": self.trace_id,
             "tenant": self.tenant,
@@ -202,18 +437,23 @@ class TraceContext:
             "outcome": self.outcome,
             "total_ms": None if self.total_ms is None
             else round(self.total_ms, 4),
-            "stages": [
-                {"stage": name,
-                 **({} if start is None
-                    else {"start_ms": round(start, 4)}),
-                 "ms": round(dur, 4)}
-                for name, start, dur in self.stages
-            ],
+            "stages": [self._stage_dict(i, *st)
+                       for i, st in enumerate(self.stages)],
         }
         if self.error is not None:
             d["error"] = self.error
         if self.annotations:
             d.update(self.annotations)
+        return d
+
+    def _stage_dict(self, i: int, name: str, start, dur: float) -> dict:
+        d = {"stage": name}
+        if start is not None:
+            d["start_ms"] = round(start, 4)
+        d["ms"] = round(dur, 4)
+        span = self._spans.get(i)
+        if span is not None and span.device_ms is not None:
+            d["device_ms"] = round(span.device_ms, 4)
         return d
 
     def __repr__(self) -> str:

@@ -8,7 +8,13 @@ backend and a query counter, plus — on sampled batches (``trace_every``)
 — a per-stage span breakdown (admission → sketch scan → top-k merge →
 rerank) recorded by running the same math as separate steps, each span
 closed with ``torch.cuda.synchronize()`` on the card; the breakdown is
-left on ``last_trace``.  Each request gets a propagated
+left on ``last_trace``.  Every other batch not served through a
+``score_fn`` or sketch-only hands the index a device-timed
+:class:`~repro_torch.obs.trace.Trace` (no sync: CUDA timing events at
+the stage boundaries), kept in ``repro_torch.obs.trace``'s ring
+(``recent("query")``), and under ``torch.profiler`` the call is the range
+``repro.query_many`` (``repro.query`` for one query) around the stages'
+``repro.query.<stage>`` ranges.  Each request gets a propagated
 :class:`~repro_torch.obs.trace.TraceContext` that a flight recorder can
 retain, and the ``device.dispatch`` / ``device.rerank`` failpoints sit
 where the reference has them.
@@ -16,6 +22,7 @@ where the reference has them.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -29,7 +36,7 @@ from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs.instrument import install_engine_gauges
-from repro_torch.obs.trace import Trace, TraceContext
+from repro_torch.obs.trace import Trace, TraceContext, profiler_range
 from repro_torch.serving.results import QueryResult
 from repro_torch.serving.sharded import ShardedSinnamonIndex
 
@@ -59,7 +66,8 @@ class QueryServer:
 
     Telemetry as in the reference: ``registry`` (default: the process-global
     ``repro_torch.obs.metrics.get_registry()``; ``NULL_REGISTRY`` turns
-    metrics off), ``event_log`` (default: the process-global one, if set),
+    metrics, the device-timed traces and the profiler ranges off),
+    ``event_log`` (default: the process-global one, if set),
     ``recorder`` (a flight recorder; default: the process-global one) and
     ``index_name`` (the label of the engine health gauges installed for
     ``index``).  A durable index keeps serving during snapshots and
@@ -78,6 +86,8 @@ class QueryServer:
         self.score_backend = score_backend
         self.registry = (obs_metrics.get_registry() if registry is None
                          else registry)
+        self._traced = not isinstance(self.registry,
+                                      obs_metrics.NullRegistry)
         self.event_log = event_log
         self.recorder = recorder
         self.trace_every = int(trace_every)
@@ -111,6 +121,18 @@ class QueryServer:
                           "Per-query serving latency.",
                           labels={"backend": backend})
 
+    def _device_trace(self, ctx: TraceContext) -> Optional[Trace]:
+        """A device-timed ``query`` trace of one batch, or None (metrics
+        off, or a ``score_fn`` batch)."""
+        if not self._traced or self.score_fn is not None:
+            return None
+        return Trace("query", self.index.device, device_timed=True,
+                     trace_id=ctx.trace_id)
+
+    def _range(self, name: str):
+        return profiler_range(name) if self._traced else \
+            contextlib.nullcontext()
+
     def _recorder(self):
         return self.recorder if self.recorder is not None \
             else obs_recorder.get_recorder()
@@ -131,10 +153,16 @@ class QueryServer:
 
         ``ctx`` is an optional propagated :class:`TraceContext`; without
         one the server opens (and records) its own."""
+        with self._range("repro.query"):
+            return self._query(q_idx, q_val, ctx)
+
+    def _query(self, q_idx, q_val, ctx: Optional[TraceContext]) \
+            -> QueryResult:
         backend = self._backend_label()
         owns = ctx is None
         if owns:
             ctx = TraceContext()
+        dtrace = self._device_trace(ctx)
         try:
             with ctx.stage("device"):
                 t0 = time.perf_counter()
@@ -142,11 +170,15 @@ class QueryServer:
                 ids, scores = self.index.search(
                     q_idx, q_val, k=self.k, kprime=self.kprime,
                     budget=self.budget, score_fn=self.score_fn,
-                    backend=self.score_backend)
+                    backend=self.score_backend, trace=dtrace)
                 dt_ms = (time.perf_counter() - t0) * 1e3
+                if dtrace is not None:
+                    dtrace.finish()
         except Exception as e:
             self._fail(ctx, owns, e)
             raise
+        if dtrace is not None:
+            ctx.add_trace(dtrace, prefix="device/")
         self._record(1, dt_ms, backend, ctx=ctx, owns=owns)
         return QueryResult(ids=ids, scores=scores, k=len(ids),
                            backend=backend, trace_id=ctx.trace_id)
@@ -162,12 +194,17 @@ class QueryServer:
         and annotated on the trace context.  With a caller's ``ctx`` the
         server only annotates it; without one it owns the context.
         """
+        with self._range("repro.query_many"):
+            return self._query_many(q_idx, q_val, ctx, degrade)
+
+    def _query_many(self, q_idx, q_val, ctx: Optional[TraceContext],
+                    degrade: int) -> QueryResult:
         bn = len(q_idx)
         backend = self._backend_label()
         owns = ctx is None
         if owns:
             ctx = TraceContext()
-        trace = None
+        trace = dtrace = None
         custom = self.score_fn is not None
         if self.trace_every > 0 and degrade == 0 and not custom:
             self._since_trace += 1
@@ -195,14 +232,19 @@ class QueryServer:
                     # Rerank-bearing paths only: a stalled/broken rerank
                     # is exactly what sketch-only degradation sidesteps.
                     _fp.fire("device.rerank")
+                    dtrace = self._device_trace(ctx)
                     ids, scores = self.index.search_many(
                         q_idx, q_val, k=self.k, kprime=kprime,
                         budget=self.budget, score_fn=self.score_fn,
-                        backend=self.score_backend)
+                        backend=self.score_backend, trace=dtrace)
                 dt_ms = (time.perf_counter() - t0) * 1e3
+                if dtrace is not None:
+                    dtrace.finish()
         except Exception as e:
             self._fail(ctx, owns, e)
             raise
+        if dtrace is not None:
+            ctx.add_trace(dtrace, prefix="device/")
         if degrade > 0:
             ctx.annotate(degraded=True, degrade_level=int(degrade),
                          sketch_only=sketch_only)

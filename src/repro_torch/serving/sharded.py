@@ -387,11 +387,11 @@ class ShardedSinnamonIndex:
 
     def search(self, q_idx, q_val, k: int, kprime: Optional[int] = None,
                budget: Optional[int] = None, score_fn=None,
-               backend: Optional[str] = None):
+               backend: Optional[str] = None, trace=None):
         ids, scores = self.search_many(
             torch.as_tensor(np.asarray(q_idx))[None],
             torch.as_tensor(np.asarray(q_val))[None], k, kprime=kprime,
-            budget=budget, score_fn=score_fn, backend=backend)
+            budget=budget, score_fn=score_fn, backend=backend, trace=trace)
         return ids[0], scores[0]
 
     def search_many(self, q_idx, q_val, k: int,
@@ -407,7 +407,8 @@ class ShardedSinnamonIndex:
         ``kprime`` is the per-shard candidate count k'; ``score_fn``
         (batch-native) overrides ``backend``; ``use_kernel`` is passed to
         the kernels' wrappers.  ``trace`` (a ``repro_torch.obs.Trace``)
-        records the whole search, synced, as one ``spmd_search`` span.
+        records the whole search as one ``spmd_search`` span (synced, or
+        device-timed on the first shard's device).
         """
         k, kl = self._sizes(k, kprime)
         backend = None if score_fn is not None else self._backend(backend)
@@ -562,8 +563,8 @@ class TieredShardedSinnamonIndex(ShardedSinnamonIndex):
                     use_kernel: Optional[bool] = None):
         """Candidates, a host sync of their slots driving each shard's
         chunk promotion, then the rows-fed rerank and the merge; with
-        ``trace`` the stages are the synced ``spmd_candidates`` /
-        ``prefetch`` / ``spmd_rerank`` spans."""
+        ``trace`` the stages are the ``spmd_candidates`` / ``prefetch`` /
+        ``spmd_rerank`` spans."""
         if score_fn is not None:
             raise NotImplementedError(
                 "score_fn is not supported on the tiered sharded index")
@@ -580,7 +581,7 @@ class TieredShardedSinnamonIndex(ShardedSinnamonIndex):
             with span("prefetch"):
                 rows = [sh.tiered.gather_rows(slots, host) for sh, (_, slots),
                         host in zip(self.shards, cands, hosts)]
-                if trace is not None:
+                if trace is not None and not trace.device_timed:
                     self._sync()
             with span("spmd_rerank"):
                 parts = []
