@@ -48,7 +48,11 @@ m=64, h=1, max_nnz=128, k=10; 8,912,896 docs / 8 = 1,114,112 slots):
               batch: every request of a batch waits for all of it) and
               throughput in queries/s of both paths; the dense request at
               B=16 split into operand prep, kernel C, the gate, topk_desc
-              over 16 x C keys and B's rerank;
+              over 16 x C keys and B's rerank; candidate selection in one
+              pass (kernel A over every tile + the merge) beside the two
+              passes (a sample of every s-th tile, then kernel A's
+              threshold form) at B=256 and B=16, bit-equal, and the
+              threshold form alone beside its twin and its bound;
 4c. eval    — run after 5, once the served index is freed: the paper's
               evaluation path (``repro_torch.eval``) on the same 1,114,112
               documents and 256 queries: the recall frontier over three
@@ -608,7 +612,8 @@ def main(argv=None) -> int:
     log(f"[4 main] served batches of 16 and 256 (k={K}, k'={KPRIME}); "
         f"launches {counts}")
     check_path_launches(counts, "fused",
-                        ("sinnamon_score_topk", "csr_rerank_topk"),
+                        ("sinnamon_score_topk", "sinnamon_score_threshold",
+                         "csr_rerank_topk"),
                         ("sinnamon_score", "embed_bag", "csr_score"))
 
     staged = QueryServer(index, k=K, kprime=KPRIME, trace_every=1)
@@ -670,7 +675,8 @@ def main(argv=None) -> int:
         f"k'={KPRIME}); launches {dense_counts}")
     check_path_launches(dense_counts, "dense",
                         ("sinnamon_score", "csr_rerank_topk"),
-                        ("sinnamon_score_topk", "embed_bag", "csr_score"))
+                        ("sinnamon_score_topk", "sinnamon_score_threshold",
+                         "embed_bag", "csr_score"))
 
     lo, res_d = dense_answers[-1]
     qi_d, qv_d = q_idx[lo:lo + 16].contiguous(), q_val[lo:lo + 16].contiguous()
@@ -773,6 +779,12 @@ def main(argv=None) -> int:
     mesh_line, mesh_counts, (gnn_mesh_line, gnn_mesh_counts) = mesh_path(
         args.seed, dev, card, recsys_line, train_line, cdf,
         then=lambda: gnn_mesh_path(args.seed, dev, card))
+    paths = {"fused": counts, "durable": durable_counts,
+             "frontdoor": frontdoor_counts, "tiered": tiered_counts,
+             "sharded": sharded_counts, "mesh": mesh_counts}
+    kernel_rows[0]["threshold_form"]["launches"] = {
+        path: c.get("sinnamon_score_threshold", 0)
+        for path, c in paths.items()}
     for row in kernel_rows:
         row["launches_durable"] = durable_counts[row["name"]]
         row["launches_frontdoor"] = frontdoor_counts[row["name"]]
@@ -854,6 +866,16 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts,
                                                 pv.view(torch.int32))):
         raise AssertionError("kernel A != twin on the main-path batch")
     a_bytes, a_ops = kernel_a_work(st, qv_op, rows_op, brows_op, C, kp)
+    # candidate selection: the single pass beside the two passes at B=16
+    # (the front door's batch) and from 32 to 256 (where the cut lies), and
+    # the threshold form alone at B=256
+    selection = {16: selection_times(sinnamon_score, a16[:3] + (
+        st.bits, st.active, a16[3]), one_sided)}
+    for bsz in (32, 64, 128, 256):
+        selection[bsz] = selection_times(sinnamon_score, tuple(
+            t[:bsz].contiguous() for t in a_args[:3]) + a_args[3:],
+            one_sided)
+    thr = threshold_times(sinnamon_score, st, a_args, one_sided)
     a_bound = max(a_bytes / HBM_BYTES_PER_S, a_ops / F32_OPS_PER_S) * 1e3
     # the per-query form: [U; L] once per batch, every query's bitmap rows
     a_bound_pq = (st.sketch.numel() * st.sketch.element_size()
@@ -967,6 +989,18 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts,
         f"with no coordinates (selection only) {a_sel_ms:.3f} ms, so "
         f"scoring {a_ms - a_sel_ms:.3f} ms; B=16 {a16_ms:.3f} ms; merge "
         f"{merge_ms:.3f} ms")
+    log(f"[5 times]   sinnamon_score_threshold B=256 (stride "
+        f"{thr['stride']}, {thr['tiles']} tiles): {thr['ms']:.3f} ms (twin "
+        f"{thr['plain_ms']:.3f} ms, bound {thr['bound_ms']:.4f} ms, "
+        f"{thr['bound_by']}); survivors a query mean "
+        f"{thr['survivors_mean']:.1f}, max {thr['survivors_max']} (cap "
+        f"{thr['cap']})")
+    for bsz, sel in selection.items():
+        log(f"[5 times]   candidate selection B={bsz} (the cut takes the "
+            f"{sel['path']} pass): single pass {sel['single_ms']:.3f} ms "
+            f"(synced call {sel['single_call_ms']:.3f}), two passes "
+            f"{sel['two_ms']:.3f} ms (synced call {sel['two_call_ms']:.3f});"
+            f" bit-equal")
     log(f"[5 times]   csr_score rerank B=256 k'={KPRIME}: {b_ms:.4f} ms (twin "
         f"{b_plain_ms:.3f} ms, bound {b_bound:.4f} ms, every gathered row "
         f"{b_bound_pq:.4f} ms)")
@@ -1021,7 +1055,8 @@ def times(index, card, q_idx, q_val, answers, counts, dense_counts,
          "merge_ms": merge_ms, "selection_only_ms": a_sel_ms,
          "scoring_ms": a_ms - a_sel_ms,
          "bound_ms_per_query_bitmap": a_bound_pq,
-         "ms_b16": a16_ms},
+         "ms_b16": a16_ms, "threshold_form": thr,
+         "selection": {str(b): v for b, v in selection.items()}},
         {"name": "csr_score", "route": "cuda",
          "source": f"{src}/csr_score.cu",
          "replaces": "src/repro/kernels/csr_score.py:50",
@@ -1778,6 +1813,7 @@ def sharded_path(q_idx, q_val, seed, dev, card, cdf):
     import repro_torch.kernels as kernels
     from repro_torch.api import IndexConfig, open_index
     from repro_torch.core import engine as eng
+    from repro_torch.kernels import sinnamon_score
     from repro_torch.serving.serve import QueryServer
     from repro_torch.serving.sharded import route_many
 
@@ -1888,7 +1924,11 @@ def sharded_path(q_idx, q_val, seed, dev, card, cdf):
                     raise AssertionError(f"bad sharded result at B={bsz}")
                 ids.append((lo, res))
             got = kernels.launch_counts()
+            tiles = -(-index.states[0].sketch.shape[1]
+                      // sinnamon_score.TILE_C)
+            two = sinnamon_score.two_pass_stride(bsz, tiles, kp) > 0
             want = {"sinnamon_score_topk": SHARDS * n_batches,
+                    "sinnamon_score_threshold": SHARDS * n_batches * two,
                     "csr_rerank_topk": SHARDS * n_batches,
                     "sinnamon_score": 0, "embed_bag": 0, "csr_score": 0,
                     "embed_bag_backward": 0}
@@ -1919,7 +1959,8 @@ def sharded_path(q_idx, q_val, seed, dev, card, cdf):
     truth = sharded_exact_ids(index, qi256, qv256)
     ls_counts = kernels.launch_counts()
     check_path_launches(ls_counts, "sharded recall ground truth",
-                        ("csr_score",), ("sinnamon_score_topk",))
+                        ("csr_score",), ("sinnamon_score_topk",
+                                         "sinnamon_score_threshold"))
     out["recall"] = {}
     for kp in SHARD_KPRIMES:
         ids = np.concatenate([index.search_many(
@@ -2041,7 +2082,8 @@ def sharded_hook(index, qi, qv, fused_ids):
     hook_ids, _ = index.search_many(qi, qv, K, kprime=KPRIME,
                                     score_fn=score_fn)
     counts = kernels.launch_counts()
-    if counts != {"sinnamon_score_topk": 0, "csr_score": 0,
+    if counts != {"sinnamon_score_topk": 0, "sinnamon_score_threshold": 0,
+                  "csr_score": 0,
                   "sinnamon_score": index.n_shards, "embed_bag": 0,
                   "csr_rerank_topk": index.n_shards,
                   "embed_bag_backward": 0}:
@@ -2533,8 +2575,8 @@ def dlrm_train(cfg, B: int, seed: int, dev, card: str):
             raise AssertionError(f"{k} launched {counts[k]} times in "
                                  f"{steps} train steps")
     check_path_launches(counts, "train", ("embed_bag", "embed_bag_backward"),
-                        ("sinnamon_score_topk", "csr_score",
-                         "sinnamon_score", "csr_rerank_topk"))
+                        ("sinnamon_score_topk", "sinnamon_score_threshold",
+                         "csr_score", "sinnamon_score", "csr_rerank_topk"))
     split = step_split(model, state, hbs[steps], cfg, opt_cfg, dev)
     peak = torch.cuda.max_memory_allocated()
     w = sorted(walls)
@@ -3894,8 +3936,8 @@ def recsys_path(seed: int, dev, card: str):
         raise AssertionError(f"kernel D launched {counts['embed_bag']} "
                              f"times in {forwards} forwards")
     check_path_launches(counts, "recsys", ("embed_bag",),
-                        ("sinnamon_score_topk", "csr_score",
-                         "sinnamon_score", "csr_rerank_topk"))
+                        ("sinnamon_score_topk", "sinnamon_score_threshold",
+                         "csr_score", "sinnamon_score", "csr_rerank_topk"))
 
     b = on_card(host_batch(0, B_p99))
     lk = recsys.score(model, b, cfg)
@@ -4448,6 +4490,104 @@ def kernel_a_work(state, qv, rows, brows, C, kp):
     from repro_torch.kernels import sinnamon_score
     B, T = qv.shape[0], -(-C // sinnamon_score.TILE_C)
     return nbytes + C + B * T * kp * 8 + qv.numel() * 12, ops
+
+
+def selection_times(sinnamon_score, args, one_sided, reps: int = 10):
+    """Candidate selection over one batch of kernel A's operands: the
+    single pass (kernel A over every tile, ``merge_tile_topk``) and the two
+    passes (the sample's stride given, so taken even under the cut),
+    CUDA-event ms and the median host ms of a synced call; raises unless
+    both give the same candidates bit for bit with the flag clear."""
+    import statistics
+
+    import torch
+    S = sinnamon_score
+    B = args[0].shape[0]
+    T = -(-args[5].shape[1] // S.TILE_C)
+    kp = min(KPRIME, S.TILE_C)
+    kw = dict(one_sided=one_sided, use_kernel=None, tile_c=S.TILE_C)
+
+    def single():
+        return S.merge_tile_topk(
+            *S.sinnamon_score_topk(*args, kp=kp, one_sided=one_sided), KPRIME)
+
+    def two():
+        keys, flag = S._scan(args, KPRIME, S.SAMPLE_STRIDE, kw)
+        return S.merge_keys(keys, KPRIME), flag
+
+    (wv, ws), ((gv, gs), flag) = single(), two()
+    if int(flag) or not (torch.equal(ws, gs) and torch.equal(
+            wv.view(torch.int32), gv.view(torch.int32))):
+        raise AssertionError(f"two passes != single pass at B={B} (flag "
+                             f"{int(flag)})")
+
+    def call_ms(fn):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    return {"path": "two" if S.two_pass_stride(B, T, KPRIME) else "single",
+            "single_ms": cuda_ms(single, reps), "two_ms": cuda_ms(two, reps),
+            "single_call_ms": call_ms(single), "two_call_ms": call_ms(two)}
+
+
+def threshold_times(sinnamon_score, state, args, one_sided) -> dict:
+    """Kernel A's threshold form over the tiles outside the sample, on the
+    sample's bound: CUDA-event ms, its twin's, and its bound (the sketch
+    and bitmap rows of those tiles read once, their gate, the survivors
+    written; a multiply-add per member slot there).  Raises unless the
+    kernel's counts and flag equal the twin's and each query's survivors
+    are the twin's (the kernel appends in no set order)."""
+    import torch
+    S = sinnamon_score
+    qv, rows, brows = args[:3]
+    B, C = qv.shape[0], args[5].shape[1]
+    T = -(-C // S.TILE_C)
+    s = S.SAMPLE_STRIDE
+    kp = min(KPRIME, S.TILE_C)
+    sv, ss = S.sinnamon_score_topk(*args, kp=kp, one_sided=one_sided)
+    sv, ss = sv[:, ::s], ss[:, ::s]          # the sample's tiles
+    head = torch.topk(S.order_key(sv, ss).reshape(B, -1), KPRIME,
+                      largest=False, sorted=True).values
+    theta = head[:, -1].contiguous()
+    cap = S.survivor_cap(KPRIME, s)
+
+    def run(use_kernel=None, cap=cap):
+        return S.sinnamon_score_threshold(*args, theta, head, stride=s,
+                                          cap=cap, one_sided=one_sided,
+                                          use_kernel=use_kernel)
+
+    ms = cuda_ms(run, reps=5)
+    plain_ms = cuda_ms(lambda: run(False, C), reps=1)
+    keys, counts, flag = run()
+    tkeys, tcounts, tflag = run(False, C)
+    if not (torch.equal(counts, tcounts) and int(flag) == int(tflag)):
+        raise AssertionError("threshold form != twin: counts or flag")
+    n = int(counts.max())
+    if n > cap:
+        raise AssertionError(f"{n} survivors of a query at B={B} pass the "
+                             f"cap {cap}")
+    H = head.shape[1]
+    got = torch.sort(keys[:, H:H + n], dim=1).values
+    if not torch.equal(got, tkeys[:, H:H + n]):
+        raise AssertionError("threshold form != twin: the survivors")
+    share = (T - -(-T // s)) / T
+    nbytes, ops = scoring_work(state, rows, brows, brows >= 0)
+    nbytes = (nbytes + C) * share + int(counts.sum()) * 8 + qv.numel() * 12
+    ops = ops * share
+    return {"ms": ms, "plain_ms": plain_ms, "stride": s,
+            "tiles": T - -(-T // s), "cap": cap,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            ops / F32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= ops / F32_OPS_PER_S else "operations",
+            "survivors_mean": float(counts.float().mean()),
+            "survivors_max": n, "flag": int(flag)}
 
 
 def scoring_work(state, rows, brows, valid):

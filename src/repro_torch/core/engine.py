@@ -534,8 +534,10 @@ def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
     order for every backend (``reference | grouped | fused``, or the alias
     ``pallas``; None -> see ``ops.resolve_backend``).  ``use_kernel`` is
     passed to the fused path's kernel.  A device-timed ``trace`` gets the
-    spans ``sketch_scan`` (the scores or per-tile candidates) and
-    ``topk_merge`` (the selection of the k').
+    spans ``sketch_scan`` (the scores, or kernel A's passes) and
+    ``topk_merge`` (the selection of the k'); the fused path adds
+    ``fallback_scan`` when it must redo a batch in one pass
+    (``ops.checked``).
 
     ``score_fn`` overrides the backend with a dense scorer.  It is
     batch-native, ``score_fn(state, spec, q_idx, q_val, budget) ->
@@ -543,17 +545,31 @@ def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
     are gated and cut with ``topk_desc``, the ``lax.top_k`` order.
     """
     from repro_torch.kernels import ops as _ops
-    from repro_torch.kernels.sinnamon_score import merge_tile_topk, topk_desc
+    return _ops.checked(issue_candidates(
+        state, spec, q_idx, q_val, kprime, budget, filter_mask,
+        score_fn=score_fn, backend=backend, use_kernel=use_kernel,
+        trace=trace), trace)
+
+
+def issue_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
+                     q_val: Tensor, kprime: int,
+                     budget: Optional[int] = None,
+                     filter_mask: Optional[Tensor] = None, score_fn=None,
+                     backend: Optional[str] = None,
+                     use_kernel: Optional[bool] = None, trace=None):
+    """:func:`topk_candidates`, issued and not yet checked: an
+    ``ops.Candidates``, whose flag only the fused path's two passes set.
+    A caller that issues more work on the candidates reads the flag after
+    it (``ops.flagged``), so the card does not wait on the host."""
+    from repro_torch.kernels import ops as _ops
+    from repro_torch.kernels.sinnamon_score import topk_desc
 
     ok = state.active if filter_mask is None else (state.active & filter_mask)
     backend = _ops.resolve_backend(backend)
     if score_fn is None and backend == "fused":
-        with _span(trace, "sketch_scan"):
-            vals, slots = _ops.sinnamon_tile_topk(
-                state, spec, q_idx, q_val, kprime, budget=budget, ok=ok,
-                use_kernel=use_kernel)
-        with _span(trace, "topk_merge"):
-            return merge_tile_topk(vals, slots, kprime)
+        return _ops.fused_candidates(state, spec, q_idx, q_val, kprime,
+                                     budget=budget, ok=ok,
+                                     use_kernel=use_kernel, trace=trace)
     with _span(trace, "sketch_scan"):
         if score_fn is not None:
             s = score_fn(state, spec, q_idx, q_val, budget)
@@ -562,7 +578,7 @@ def topk_candidates(state: SinnamonState, spec: EngineSpec, q_idx: Tensor,
                             grouped=backend == "grouped")
         s = torch.where(ok[None, :], s, -torch.inf)
     with _span(trace, "topk_merge"):
-        return topk_desc(s, kprime)
+        return _ops.Candidates(*topk_desc(s, kprime))
 
 
 def rerank_topk(state: SinnamonState, cand_scores: Tensor, cand_slots: Tensor,
@@ -626,14 +642,22 @@ def search_batch(state, spec, q_idx, q_val, k, kprime, budget=None,
     """Batched search [B, Lq] -> (ids int64[B, k], scores f32[B, k],
     slots int32[B, k]); ``score_fn`` as in :func:`topk_candidates`.  A
     device-timed ``trace`` gets :func:`topk_candidates`'s spans and
-    ``rerank``."""
-    cand_scores, cand_slots = topk_candidates(
+    ``rerank``.  The candidates' flag is read once the rerank is issued; a
+    flagged batch redoes both in the span ``fallback_scan``."""
+    from repro_torch.kernels import ops as _ops
+
+    cands = issue_candidates(
         state, spec, q_idx, q_val, kprime, budget, filter_mask,
         score_fn=score_fn, backend=backend, use_kernel=use_kernel,
         trace=trace)
     with _span(trace, "rerank"):
-        return rerank_topk(state, cand_scores, cand_slots, q_idx, q_val, k,
-                           use_kernel=use_kernel)
+        out = rerank_topk(state, cands.vals, cands.slots, q_idx, q_val, k,
+                          use_kernel=use_kernel)
+    if _ops.flagged([cands])[0]:
+        with _span(trace, "fallback_scan"):
+            out = rerank_topk(state, *cands.redo(), q_idx, q_val, k,
+                              use_kernel=use_kernel)
+    return out
 
 
 def search_batch_sketch(state, spec, q_idx, q_val, k, budget=None,

@@ -12,6 +12,7 @@ from repro_torch.kernels import sinnamon_score as _sinn
 
 #: Every kernel wrapper of the package; each carries a ``launches`` count.
 WRAPPERS = {"sinnamon_score_topk": _sinn.sinnamon_score_topk,
+            "sinnamon_score_threshold": _sinn.sinnamon_score_threshold,
             "csr_score": _csr.csr_score,
             "sinnamon_score": _sinn.sinnamon_score,
             "embed_bag": _bag.embed_bag,

@@ -6,8 +6,30 @@
 // one-sided decode of the stacked [U; L] sketch (min over the h U-rows of a
 // positive coordinate, max over the h L-rows of a negative one), mask by the
 // coordinate's membership bits, sum over the budgeted coordinates, gate
-// inactive / filtered / pad slots to -inf, and keep the tile's kp best
-// candidates in (score desc, slot asc) order.
+// inactive / filtered / pad slots to -inf, and then, in one of two forms:
+// * the top-k form keeps the tile's kp best candidates in (score desc,
+//   slot asc) order, over every tile or over tiles 0, s, 2s, ... (the
+//   sample of the two-pass selection, sinnamon_score.candidate_scan);
+// * the threshold form, over the other tiles, appends every key below its
+//   query's bound (the sample's k'-th key) to the query's survivor row.
+// Both forms share the scoring loop below, so the float program is one.
+//
+// Where the time goes at the whole MS MARCO index (1,088 tiles, B=256,
+// L=64; PERF.md section 6): the top-k form over every tile took 87-88 ms, of
+// which selection (radix select, tie scan, sort, writes) about 30 and
+// scoring 57-58; a query needs only its k' = 800 best of 870,400 such
+// candidates.  The two passes spend the top-k form on 1/s of the tiles and
+// scoring alone on the rest: the threshold form is bound by the scoring
+// loop, as is the whole path now.
+//
+// Why the threshold form keeps the answer bit for bit: the bound is the
+// k'-th smallest key of a subset of the slots, so it is >= the global k'-th;
+// a global top-k' key outside the sample is <= the global k'-th and, keys
+// being unique, below the bound.  The k' smallest of the sample's k' and
+// the survivors are therefore the single pass's, whatever order the
+// warp-aggregated atomics appended them in.  A query whose count passes
+// the row's cap, or whose bound is a gated (-inf) key, sets a flag, and the
+// host redoes the batch in one pass.
 //
 // What bounds it on an H100.  The byte bound is small (each query reads its
 // coordinates' bitmap words of the tile; the sketch cells are shared by the
@@ -171,7 +193,22 @@ __device__ __forceinline__ int field16(const u64 (&v)[kPacks], int j) {
   return static_cast<int>((v[j >> 2] >> (16 * (j & 3))) & 0xFFFFull);
 }
 
-template <typename Cell>
+// Outputs of the threshold form (unused by the top-k form).
+struct Survivors {
+  const long long* theta;   // [B] each query's bound: an int64 order key
+  long long* keys;          // [B, row]: survivors from column `at` on
+  int* counts;              // [B] survivors found (may pass cap)
+  int* flag;                // set to 1 when a count passes cap or a
+                            // query's bound is a gated key
+  int row, at, cap;
+};
+
+// kThreshold false: the top-k form.  Block (b, y) keeps tile y * stride's
+// kp best keys in row y of out_vals / out_slots [B, T, kp] (stride 1: every
+// tile).  kThreshold true: the threshold form.  Block (b, y) scores the y-th
+// tile that is not a multiple of stride and appends every key below
+// theta[b] to query b's row of sv.keys.
+template <typename Cell, bool kThreshold>
 __global__ void __launch_bounds__(kThreads, 2)
 sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
                      const int* __restrict__ rows,        // [B, L, h]
@@ -180,9 +217,10 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
                      const uint8_t* __restrict__ ok,      // [C]
                      const Cell* __restrict__ sk,         // [R, C]
                      int L, int h, int C, int W, int kp, int one_sided,
-                     int T,
+                     int T, int stride,
                      float* __restrict__ out_vals,        // [B, T, kp]
-                     int* __restrict__ out_slots) {       // [B, T, kp]
+                     int* __restrict__ out_slots,         // [B, T, kp]
+                     Survivors sv) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(L, h, kp);
   u64* s_keys = reinterpret_cast<u64*>(smem + lay.keys);
@@ -194,9 +232,24 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
   int* s_rows = s_brow + L;
 
   const int b = blockIdx.x;
-  const int tile = blockIdx.y;
+  const int tile = kThreshold
+      ? blockIdx.y + blockIdx.y / (stride - 1) + 1
+      : blockIdx.y * stride;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  const float neg_inf = -__int_as_float(0x7f800000);
+
+  // The threshold form's bound in the kernel's (u, slot) order.  A bound
+  // whose score is -inf means the sample held fewer than k' live slots:
+  // the query is flagged for the single pass and scores nothing here.
+  u64 bound = 0;
+  if constexpr (kThreshold) {
+    bound = static_cast<u64>(sv.theta[b]) ^ (1ull << 63);
+    if (static_cast<uint32_t>(bound >> 32) >= order_word(neg_inf)) {
+      if (tid == 0) *sv.flag = 1;
+      return;
+    }
+  }
 
   // The query's coordinates, padded ones (brows < 0) dropped and the order
   // kept: a padded coordinate adds nothing to any slot.
@@ -317,14 +370,45 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
     __syncthreads();                // stage[ck & 1] is refilled next round
   }
 
-  // -- selection: the kp smallest (u, slot) keys of the tile ---------------
   uint32_t u[kSlotsPerThread];
 #pragma unroll
   for (int j = 0; j < kSlotsPerThread; ++j) {
     const int slot = slot0 + j * kThreads;
     const bool keep = slot < C && ok[slot] != 0;
-    u[j] = order_word(keep ? acc[j] : -__int_as_float(0x7f800000));
+    u[j] = order_word(keep ? acc[j] : neg_inf);
   }
+
+  // -- threshold form: every key below the bound, appended ------------------
+  // A warp whose slots hold a survivor takes its places with one atomic on
+  // the query's count; keys go out as the twin's int64 order keys.  Places
+  // past cap are counted, not written, and raise the flag.
+  if constexpr (kThreshold) {
+    long long* dst = sv.keys + static_cast<size_t>(b) * sv.row + sv.at;
+    bool over = false;
+#pragma unroll
+    for (int j = 0; j < kSlotsPerThread; ++j) {
+      const u64 key = (static_cast<u64>(u[j]) << 32) |
+                      static_cast<uint32_t>(slot0 + j * kThreads);
+      const bool in = key < bound;
+      const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, in);
+      if (ballot == 0) continue;
+      int at = 0;
+      if (lane == 0) at = atomicAdd(sv.counts + b, __popc(ballot));
+      at = __shfl_sync(0xFFFFFFFFu, at, 0);
+      if (in) {
+        const int pos = at + __popc(ballot & ((1u << lane) - 1u));
+        if (pos < sv.cap) {
+          dst[pos] = static_cast<long long>(key ^ (1ull << 63));
+        } else {
+          over = true;
+        }
+      }
+    }
+    if (over) *sv.flag = 1;
+    return;
+  }
+
+  // -- selection: the kp smallest (u, slot) keys of the tile ---------------
 
   // MSB radix select of the kp-th smallest u: up to 4 passes of 8 bits.
   // Pass p counts into s_hist[p & 1]; warp 0 reads and re-zeroes it, so a
@@ -418,7 +502,7 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
   __syncthreads();
 
   // Bitonic sort of the n2 survivors, ascending (u, slot).
-  const size_t out_base = (static_cast<size_t>(b) * T + tile) * kp;
+  const size_t out_base = (static_cast<size_t>(b) * T + blockIdx.y) * kp;
   if (n2 <= kRegKeys * kThreads) {
     // Keys e = tid + r * kThreads in registers: partners inside a warp are
     // reached by shuffles, partner r ^ 1 inside the thread, and only the
@@ -499,25 +583,53 @@ sinnamon_topk_kernel(const float* __restrict__ qv,        // [B, L]
   }
 }
 
-template <typename Cell>
+template <typename Cell, bool kThreshold>
 int launch(const void* qv, const void* rows, const void* brows,
            const void* bits, const void* ok, const void* sk, int B, int L,
-           int h, int C, int W, int kp, int one_sided, int T, void* out_vals,
-           void* out_slots, cudaStream_t stream) {
-  if (kp < 1 || kp > kTileC) return static_cast<int>(cudaErrorInvalidValue);
+           int h, int C, int W, int kp, int one_sided, int T, int stride,
+           void* out_vals, void* out_slots, Survivors sv,
+           cudaStream_t stream) {
+  if (kp < 1 || kp > kTileC || stride < (kThreshold ? 2 : 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = Layout(L, h, kp).total;
   cudaError_t err = cudaFuncSetAttribute(
-      sinnamon_topk_kernel<Cell>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      sinnamon_topk_kernel<Cell, kThreshold>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B, T);
-  sinnamon_topk_kernel<Cell><<<grid, kThreads, smem, stream>>>(
+  sinnamon_topk_kernel<Cell, kThreshold><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(qv), static_cast<const int*>(rows),
       static_cast<const int*>(brows), static_cast<const int*>(bits),
       static_cast<const uint8_t*>(ok), static_cast<const Cell*>(sk), L, h, C,
-      W, kp, one_sided, T, static_cast<float*>(out_vals),
-      static_cast<int*>(out_slots));
+      W, kp, one_sided, T, stride, static_cast<float*>(out_vals),
+      static_cast<int*>(out_slots), sv);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kThreshold>
+int launch_kind(int cell_kind, const void* qv, const void* rows,
+                const void* brows, const void* bits, const void* ok,
+                const void* sk, int B, int L, int h, int C, int W, int kp,
+                int one_sided, int T, int stride, void* out_vals,
+                void* out_slots, Survivors sv, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cell_kind) {
+    case 0:
+      return launch<float, kThreshold>(qv, rows, brows, bits, ok, sk, B, L,
+                                       h, C, W, kp, one_sided, T, stride,
+                                       out_vals, out_slots, sv, s);
+    case 1:
+      return launch<Bf16, kThreshold>(qv, rows, brows, bits, ok, sk, B, L,
+                                      h, C, W, kp, one_sided, T, stride,
+                                      out_vals, out_slots, sv, s);
+    case 2:
+      return launch<F8E4M3, kThreshold>(qv, rows, brows, bits, ok, sk, B, L,
+                                        h, C, W, kp, one_sided, T, stride,
+                                        out_vals, out_slots, sv, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -529,6 +641,7 @@ extern "C" long long sinnamon_topk_smem(int L, int h, int kp) {
   return static_cast<long long>(Layout(L, h, kp).total);
 }
 
+// The top-k form over tiles 0, stride, 2 * stride, ... (T of them).
 // cell_kind: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int sinnamon_topk_launch(int cell_kind, const void* qv,
@@ -536,20 +649,26 @@ extern "C" int sinnamon_topk_launch(int cell_kind, const void* qv,
                                     const void* bits, const void* ok,
                                     const void* sk, int B, int L, int h,
                                     int C, int W, int kp, int one_sided,
-                                    int T, void* out_vals, void* out_slots,
-                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cell_kind) {
-    case 0:
-      return launch<float>(qv, rows, brows, bits, ok, sk, B, L, h, C, W, kp,
-                           one_sided, T, out_vals, out_slots, s);
-    case 1:
-      return launch<Bf16>(qv, rows, brows, bits, ok, sk, B, L, h, C, W, kp,
-                          one_sided, T, out_vals, out_slots, s);
-    case 2:
-      return launch<F8E4M3>(qv, rows, brows, bits, ok, sk, B, L, h, C, W, kp,
-                            one_sided, T, out_vals, out_slots, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                    int T, int stride, void* out_vals,
+                                    void* out_slots, void* stream) {
+  return launch_kind<false>(cell_kind, qv, rows, brows, bits, ok, sk, B, L,
+                            h, C, W, kp, one_sided, T, stride, out_vals,
+                            out_slots, Survivors{}, stream);
+}
+
+// The threshold form over the T tiles that are not multiples of stride:
+// keys [B, row] get query b's survivors at columns at .. at + cap - 1,
+// counts [B] and flag [1] start at 0.
+extern "C" int sinnamon_threshold_launch(
+    int cell_kind, const void* qv, const void* rows, const void* brows,
+    const void* bits, const void* ok, const void* sk, int B, int L, int h,
+    int C, int W, int one_sided, int T, int stride, const void* theta,
+    void* keys, int row, int at, int cap, void* counts, void* flag,
+    void* stream) {
+  const Survivors sv{static_cast<const long long*>(theta),
+                     static_cast<long long*>(keys), static_cast<int*>(counts),
+                     static_cast<int*>(flag), row, at, cap};
+  return launch_kind<true>(cell_kind, qv, rows, brows, bits, ok, sk, B, L,
+                           h, C, W, 1, one_sided, T, stride, nullptr,
+                           nullptr, sv, stream);
 }

@@ -3,8 +3,9 @@
 Counterpart of ``repro.kernels.ops``.  Every query hot path routes
 candidate generation through one selector:
 
-* ``fused``     — kernel A (``sinnamon_score_topk``) + the tile merge; never
-  materialises the [B, C] score matrix.  The default.  ``pallas``, the
+* ``fused``     — kernel A + the merge (:func:`fused_candidates`: one pass
+  over every tile, or a sample and a threshold pass); never materialises
+  the [B, C] score matrix.  The default.  ``pallas``, the
   reference package's name for its fused backend, is accepted as an alias,
   so a config or ``REPRO_SCORE_BACKEND`` written for ``repro`` works here.
 * ``grouped``   — ``engine.score_batch(grouped=True)`` + a dense top-k.
@@ -28,13 +29,14 @@ False runs the twin on the card too, which is how the kernels are checked).
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import csr_score as _csr
 from repro_torch.kernels import embed_bag as _bag
 from repro_torch.kernels import sinnamon_score as _sinn
+from repro_torch.obs.trace import span as _span
 
 Tensor = torch.Tensor
 
@@ -114,29 +116,92 @@ def prepare_fused_operands(state, spec, q_idx, q_val, budget=None):
     return qv, rows.contiguous(), brows, state.sketch, True
 
 
-def sinnamon_tile_topk(state, spec, q_idx, q_val, kprime: int, *,
-                       budget: Optional[int] = None,
-                       ok: Optional[Tensor] = None,
-                       use_kernel: Optional[bool] = None):
-    """Sketch-scan stage of the fused path: per-tile candidates, pre-merge.
+class Candidates(NamedTuple):
+    """Candidates as issued: upper bounds f32[B, k'] and slots int32[B, k']
+    in (bound desc, slot asc) order; ``flag``, the two-pass selection's
+    flag (int32[1]) on its way to the host, None where nothing can
+    overturn them; ``ready``, the event after which ``flag`` holds the
+    card's value (None: it does now); ``redo``, the single pass that gives
+    the answer where the flag reads nonzero (:func:`flagged`)."""
+    vals: Tensor
+    slots: Tensor
+    flag: Optional[Tensor] = None
+    ready: Optional[object] = None
+    redo: Optional[Callable] = None
 
-    Slots past the capacity (the last tile's padding) are gated to -inf, so
-    any capacity works.  Tiles are the kernel's ``TILE_C`` slots on every
-    device; ``kp = min(kprime, TILE_C)``.  Returns
-    ``(vals f32[B, T, kp], slots int32[B, T, kp])``; feed them to
-    :func:`repro_torch.kernels.sinnamon_score.merge_tile_topk`.
+
+def _flag_to_host(flag: Tensor):
+    """``flag`` copied to pinned host memory behind the pass that sets it,
+    and the event that marks the copy done: a later read waits for that
+    pass alone, not for the merge and the rerank queued after it."""
+    if flag.device.type != "cuda":
+        return flag, None
+    host = torch.empty(flag.shape, dtype=flag.dtype, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(flag.device))
+    return host, ready
+
+
+def fused_candidates(state, spec, q_idx, q_val, kprime: int, *,
+                     budget: Optional[int] = None,
+                     ok: Optional[Tensor] = None,
+                     use_kernel: Optional[bool] = None,
+                     trace=None) -> Candidates:
+    """The fused path's candidates, issued and not yet checked: kernel A
+    (``sinnamon_score.candidate_scan``: one pass or two, by the batch's
+    shape) and the merge.  Read the flag with :func:`flagged` once the
+    work that uses them is issued, or take :func:`checked`.
+
+    Slots past the capacity (the last tile's padding) are gated to -inf,
+    so any capacity works; tiles are the kernel's ``TILE_C`` slots on every
+    device.  A ``trace`` gets the spans ``sketch_scan`` (operand prep and
+    kernel A's passes) and ``topk_merge`` (the merge).
     """
     C = state.sketch.shape[1]
     if kprime > C:
         raise ValueError(f"kprime={kprime} > capacity {C}")
-    qv, rows, brows, skmat, one_sided = prepare_fused_operands(
-        state, spec, q_idx, q_val, budget)
-    if ok is None:
-        ok = torch.ones((C,), dtype=torch.bool, device=qv.device)
-    return _sinn.sinnamon_score_topk(
-        qv, rows, brows, state.bits, ok.contiguous(), skmat,
-        kp=min(kprime, _sinn.TILE_C), one_sided=one_sided,
-        use_kernel=use_kernel)
+    with _span(trace, "sketch_scan"):
+        qv, rows, brows, skmat, one_sided = prepare_fused_operands(
+            state, spec, q_idx, q_val, budget)
+        if ok is None:
+            ok = torch.ones((C,), dtype=torch.bool, device=qv.device)
+        args = (qv, rows, brows, state.bits, ok.contiguous(), skmat)
+        kw = dict(kprime=kprime, one_sided=one_sided, use_kernel=use_kernel)
+        keys, flag = _sinn.candidate_scan(*args, **kw)
+        if flag is not None:
+            flag, ready = _flag_to_host(flag)
+    with _span(trace, "topk_merge"):
+        vals, slots = _sinn.merge_keys(keys, kprime)
+    if flag is None:
+        return Candidates(vals, slots)
+    return Candidates(vals, slots, flag, ready, lambda: _sinn.merge_keys(
+        _sinn.rescan(*args, **kw), kprime))
+
+
+def flagged(cands) -> list:
+    """Which of the issued :class:`Candidates` must be redone.  A caller
+    reads once all of its batches (a sharded index's shards) and the work
+    on them are issued; each flag reached the host behind its own pass, so
+    the read never waits for that later work."""
+    out = []
+    for c in cands:
+        if c.ready is not None:
+            c.ready.synchronize()
+        out.append(c.flag is not None and bool(c.flag.item()))
+    return out
+
+
+def checked(cands: Candidates, trace=None):
+    """(vals, slots) of issued candidates, their flag read now; a flagged
+    batch is redone in one pass, in a span ``fallback_scan`` of a
+    device-timed trace, or in ``topk_merge`` of a synced one, whose stages
+    stay ``serve.QUERY_STAGES``."""
+    if not flagged([cands])[0]:
+        return cands.vals, cands.slots
+    timed = trace is None or trace.device_timed
+    with _span(trace, "fallback_scan" if timed else "topk_merge"):
+        return cands.redo()
 
 
 def sinnamon_score_batch(state, qv: Tensor, rows: Tensor,

@@ -31,7 +31,6 @@ import torch
 from repro_torch.core import engine as eng
 from repro_torch.fault import failpoints as _fp
 from repro_torch.kernels import ops as _ops
-from repro_torch.kernels import sinnamon_score as _sinn
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import recorder as obs_recorder
@@ -313,22 +312,9 @@ class QueryServer:
                 k, kprime = index._sizes(self.k, self.kprime)
                 qi = index._tensor(q_idx, torch.int32)
                 qv = index._tensor(q_val, torch.float32)
-            if backend == "fused":
-                with trace.span("sketch_scan"):
-                    tv, ts = _ops.sinnamon_tile_topk(state, spec, qi, qv,
-                                                     kprime,
-                                                     budget=self.budget,
-                                                     ok=state.active)
-                with trace.span("topk_merge"):
-                    cand_scores, cand_slots = _sinn.merge_tile_topk(tv, ts,
-                                                                    kprime)
-            else:
-                with trace.span("sketch_scan"):
-                    s = eng.score_batch(state, spec, qi, qv, self.budget,
-                                        grouped=backend == "grouped")
-                    s = torch.where(state.active[None, :], s, -torch.inf)
-                with trace.span("topk_merge"):
-                    cand_scores, cand_slots = _sinn.topk_desc(s, kprime)
+            cand_scores, cand_slots = eng.topk_candidates(
+                state, spec, qi, qv, kprime, self.budget, backend=backend,
+                trace=trace)
             with trace.span("rerank"):
                 ids, scores, _ = eng.rerank_topk(state, cand_scores,
                                                  cand_slots, qi, qv, k)

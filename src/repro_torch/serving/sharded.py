@@ -17,9 +17,10 @@ blocks of ``update_block`` documents per shard, and ``spec.capacity`` as
 the PER-SHARD slot count (shard s owns global slots ``[s·cap,
 (s+1)·cap)`` of :meth:`ShardedSinnamonIndex.logical_state`).
 
-Search.  Each shard runs ``engine.topk_candidates`` (kernel A and its tile
+Search.  Each shard issues ``engine.issue_candidates`` (kernel A and the
 merge on the fused backend, or a ``score_fn`` such as kernel C) for
-``kl = min(k', cap)`` candidates, then ``engine.rerank_topk`` (B's rerank
+``kl = min(k', cap)`` candidates, every shard before any flag of the
+two-pass selection is read (``kernels.ops.flagged``), then ``engine.rerank_topk`` (B's rerank
 kernel) keeps its top ``min(k, kl)``; :func:`repro_torch.distributed.topk
 .merge_shards` concatenates the shards in order and takes the global
 top-k.  This equals the reference, which reranks all ``kl`` candidates of
@@ -58,6 +59,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import sketch
 from repro_torch.distributed import mesh as meshlib
 from repro_torch.distributed import topk
+from repro_torch.kernels import ops as _ops
 from repro_torch.storage import vecstore
 
 Tensor = torch.Tensor
@@ -111,9 +113,9 @@ def make_search_step(mesh, local_spec: eng.EngineSpec, *, k: int,
 
     ``state`` is the global state, its leaves DTensors placed by
     :func:`state_pspecs` (or, on a one-device mesh, plain tensors).  The
-    rank runs ``engine.topk_candidates`` on its own shard (the fused
-    backend by default: kernel A and its tile merge), B's rerank keeps its
-    top ``min(k, kl)``, and the candidate tuples (scores, ids, packed
+    rank runs ``engine.search_batch`` on its own shard (the fused backend
+    by default: kernel A and the merge, then B's rerank keeps its top
+    ``min(k, kl)``), and the candidate tuples (scores, ids, packed
     (shard, slot) locators) are all-gathered over each corpus axis of more
     than one device, as ``merge_over_axes`` does (three all-gathers an
     axis; the reference's id is two uint32 payloads, the port's one
@@ -122,8 +124,6 @@ def make_search_step(mesh, local_spec: eng.EngineSpec, *, k: int,
     and the answer is ``engine.search_batch``'s.
     """
     from torch.distributed import _functional_collectives as funcol
-
-    from repro_torch.kernels import ops as _ops
 
     corpus = [a for a in meshlib.corpus_axes(mesh)
               if meshlib.n_shards(mesh, (a,)) > 1]
@@ -140,11 +140,10 @@ def make_search_step(mesh, local_spec: eng.EngineSpec, *, k: int,
         qi = getattr(q_idx, "_local_tensor", q_idx)
         qv = getattr(q_val, "_local_tensor", q_val)
         kl = min(kprime_local, local_spec.capacity)
-        ub, slots = eng.topk_candidates(local, local_spec, qi, qv, kl,
-                                        budget, backend=backend,
-                                        use_kernel=use_kernel)
-        ids, scores, sl = eng.rerank_topk(local, ub, slots, qi, qv,
-                                          min(k, kl), use_kernel=use_kernel)
+        ids, scores, sl = eng.search_batch(local, local_spec, qi, qv,
+                                           min(k, kl), kl, budget,
+                                           backend=backend,
+                                           use_kernel=use_kernel)
         shard = meshlib.linear_index(mesh, meshlib.corpus_axes(mesh))
         tup = (scores, ids, topk.pack_shard_slot(shard, sl))
         for ax in corpus:
@@ -336,7 +335,6 @@ class ShardedSinnamonIndex:
 
     # -- retrieval ------------------------------------------------------------
     def _backend(self, backend) -> str:
-        from repro_torch.kernels import ops as _ops
         return _ops.resolve_backend(self.default_backend if backend is None
                                     else backend)
 
@@ -357,10 +355,12 @@ class ShardedSinnamonIndex:
 
     def _candidates(self, qs, kl: int, budget, score_fn, backend,
                     use_kernel) -> list:
-        """Every shard's (upper bounds, slots) [B, kl]."""
-        return [eng.topk_candidates(sh.state, sh.spec, *qs[sh.device], kl,
-                                    budget, score_fn=score_fn,
-                                    backend=backend, use_kernel=use_kernel)
+        """Every shard's candidates [B, kl], issued on every shard before
+        any flag is read (``ops.flagged``), so the shards' cards run
+        together."""
+        return [eng.issue_candidates(sh.state, sh.spec, *qs[sh.device], kl,
+                                     budget, score_fn=score_fn,
+                                     backend=backend, use_kernel=use_kernel)
                 for sh in self.shards]
 
     def _merge(self, parts, k: int):
@@ -418,12 +418,18 @@ class ShardedSinnamonIndex:
                 qs = self._queries(q_idx, q_val)
                 cands = self._candidates(qs, kl, budget, score_fn, backend,
                                          use_kernel)
-                parts = []
-                for sh, (ub, slots) in zip(self.shards, cands):
+
+                def rerank(sh, ub, slots):
                     ids, sc, sl = eng.rerank_topk(
                         sh.state, ub, slots, *qs[sh.device], min(k, kl),
                         use_kernel=use_kernel)
-                    parts.append((sc, ids, sl))
+                    return sc, ids, sl
+
+                parts = [rerank(sh, c.vals, c.slots)
+                         for sh, c in zip(self.shards, cands)]
+                for i, redo in enumerate(_ops.flagged(cands)):
+                    if redo:
+                        parts[i] = rerank(self.shards[i], *cands[i].redo())
                 out = self._host(*self._merge(parts, k), return_locators)
         return out
 
@@ -577,6 +583,8 @@ class TieredShardedSinnamonIndex(ShardedSinnamonIndex):
             with span("spmd_candidates"):
                 cands = self._candidates(qs, kl, budget, None, backend,
                                          use_kernel)
+                cands = [c.redo() if redo else (c.vals, c.slots)
+                         for c, redo in zip(cands, _ops.flagged(cands))]
                 hosts = [slots.cpu() for _, slots in cands]      # sync
             with span("prefetch"):
                 rows = [sh.tiered.gather_rows(slots, host) for sh, (_, slots),

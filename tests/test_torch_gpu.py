@@ -120,6 +120,110 @@ def test_sinnamon_kernel_bit_equal_to_twin(cuda, cell, B, L, h, m, C, kprime,
     assert int(gs.max()) < C
 
 
+def _sample_bound(ops_, kprime, stride):
+    """The sample's top-k' keys (kernel A's top-k form over tiles 0,
+    stride, ...) and their last, each query's bound."""
+    B = ops_[0].shape[0]
+    kp = min(kprime, sinnamon_score.TILE_C)
+    sv, ss = sinnamon_score._launch(*ops_, kp, True, stride)
+    head = torch.topk(sinnamon_score.order_key(sv, ss).reshape(B, -1),
+                      kprime, largest=False, sorted=True).values
+    return head, head[:, -1].contiguous()
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+@pytest.mark.parametrize("B,L,m,C,kprime,density,cap", [
+    (16, 20, 16, 40 * 8_192, 800, 1 / 64, None),
+    (8, 64, 16, 33 * 8_192 + 1_056, 800, 0.5, None),   # a partial tile
+    (4, 6, 8, 34 * 8_192, 9_000, 1 / 512, None),       # k' > TILE_C
+    (16, 20, 16, 40 * 8_192, 800, 1 / 64, 37),         # counts past cap
+])
+def test_threshold_form_matches_twin(cuda, cell, B, L, m, C, kprime, density,
+                                     cap):
+    """Kernel A's threshold form against its twin: each query's count and
+    the flag equal; the survivors equal as sets (the kernel appends in no
+    set order) or, past ``cap``, ``cap`` of the twin's; a gated bound
+    (query 1) gives no survivors and sets the flag."""
+    rng = np.random.default_rng(B * 7 + C)
+    ops_ = [t.to(cuda) for t in _fused_operands(rng, B, L, 1, m, C, 40,
+                                                CELLS[cell], True, density)]
+    s = sinnamon_score.SAMPLE_STRIDE
+    head, theta = _sample_bound(ops_, kprime, s)
+    theta[1] = sinnamon_score.GATED_KEY + 5
+    cap = cap or sinnamon_score.survivor_cap(kprime, s)
+    before = sinnamon_score.sinnamon_score_threshold.launches
+    kk, kc, kf = sinnamon_score.sinnamon_score_threshold(
+        *ops_, theta, head, stride=s, cap=cap)
+    assert sinnamon_score.sinnamon_score_threshold.launches == before + 1
+    tk, tc, tf = sinnamon_score.sinnamon_score_threshold(
+        *ops_, theta, head, stride=s, cap=C, use_kernel=False)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, tc) and int(kc[1]) == 0
+    assert int(kf) == 1 and int(tf) == 1
+    H = head.shape[1]
+    assert torch.equal(kk[:, :H], head)
+    for b in range(B):
+        n = int(kc[b])
+        got = torch.sort(kk[b, H:H + min(n, cap)]).values
+        if n <= cap:
+            assert torch.equal(got, tk[b, H:H + n])
+        else:
+            assert bool(torch.isin(got, tk[b, H:H + n]).all())
+        assert bool((kk[b, H + min(n, cap):] == sinnamon_score.KEY_PAD).all())
+
+
+def test_flag_reaches_the_host_behind_its_pass(cuda):
+    """``ops.flagged`` reads a flag copied to the host behind the pass that
+    set it, through its event; candidates without a flag read False."""
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    flag.fill_(1)
+    host, ready = ops._flag_to_host(flag)
+    assert host.device.type == "cpu" and host.is_pinned()
+    late = torch.randn(4_096, 4_096, device=cuda)
+    late = late @ late                     # queued after the copy
+    cands = [ops.Candidates(None, None, host, ready),
+             ops.Candidates(None, None)]
+    assert ops.flagged(cands) == [True, False]
+    del late
+
+
+@pytest.mark.parametrize("B", [16, 256])
+def test_two_pass_bit_equal_to_single_pass_at_shard_size(cuda, monkeypatch,
+                                                         B):
+    """One shard's 136 tiles: the two passes (given the stride at B=16,
+    which is under the cut) give the single pass's candidates bit for bit,
+    with one launch of each form; a survivor cap of 3 sets the flag, and
+    the single pass (one more top-k launch) gives the same answer."""
+    rng = np.random.default_rng(B)
+    C, kprime = 136 * 8_192, 800
+    ops_ = [t.to(cuda) for t in _fused_operands(rng, B, 64, 1, 64, C, 40,
+                                                torch.bfloat16, True)]
+    want = sinnamon_score.merge_tile_topk(
+        *sinnamon_score.sinnamon_score_topk(*ops_, kp=kprime), kprime)
+    kw = dict(one_sided=True, use_kernel=None, tile_c=sinnamon_score.TILE_C)
+    for cap, launches in ((None, (1, 1)), (3, (2, 1))):
+        if cap is not None:
+            monkeypatch.setattr(sinnamon_score, "survivor_cap",
+                                lambda kprime, stride: cap)
+        a0 = sinnamon_score.sinnamon_score_topk.launches
+        t0 = sinnamon_score.sinnamon_score_threshold.launches
+        f0 = sinnamon_score.candidate_scan.fallbacks
+        keys, flag = sinnamon_score._scan(ops_, kprime,
+                                          sinnamon_score.SAMPLE_STRIDE, kw)
+        assert int(flag) == (cap == 3)
+        if int(flag):
+            keys = sinnamon_score.rescan(*ops_, kprime=kprime)
+        got = sinnamon_score.merge_keys(keys, kprime)
+        torch.cuda.synchronize()
+        assert (sinnamon_score.sinnamon_score_topk.launches - a0,
+                sinnamon_score.sinnamon_score_threshold.launches - t0) \
+            == launches
+        assert sinnamon_score.candidate_scan.fallbacks - f0 == (cap == 3)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+
+
 @pytest.mark.parametrize("cell,B,L,h,m,C,one_sided,density", [
     ("f32", 2, 5, 2, 8, 384, True, 0.5),
     ("bf16", 3, 7, 1, 16, 19_968, True, 0.5),      # C not a multiple of 2048
