@@ -2,9 +2,15 @@
 
 Once the window has closed and the system's state is freed, a sample of
 the window's steps is drawn from the seed and their query batches are
-judged.  The reference (``bench/reference``) is given the same inputs the
-system was given: the corpus, redrawn chunk by chunk from the seed.  It
-scores every live document for all the judged queries in one pass.
+judged.  The reference is the module at the configuration's ``reference``
+path (:func:`benchlib.spec.reference`).  It is given the same inputs the
+system was given (the corpus, redrawn chunk by chunk from the seed, and
+each step's ``writes``) and its ``states(cfg, seed, device, steps,
+judged, cell_dtype, store_dtype)`` yields, in step order, (positions,
+state): the state that the judged steps at those positions are judged
+against.  Each group's queries are scored against every live document of
+its state in one pass, and ``reference/compare.py`` judges them; the
+groups' results are merged.
 """
 
 from __future__ import annotations
@@ -13,8 +19,8 @@ import numpy as np
 import torch
 
 from benchlib import data as bdata
+from benchlib import spec as bspec
 from reference import compare
-from reference.sinnamon import RefIndex
 
 
 def sample_steps(steps: list, seed: int, traffic: dict) -> dict:
@@ -36,20 +42,6 @@ def sample_steps(steps: list, seed: int, traffic: dict) -> dict:
     return out
 
 
-def build(cfg: dict, seed: int, device, cell_dtype=None,
-          store_dtype=None) -> RefIndex:
-    """The reference index of the configuration's corpus, drawn again
-    from the seed."""
-    data = cfg["data"]
-    ref = RefIndex(cfg["index"], device, int(data["docs"]), cell_dtype,
-                   store_dtype)
-    cdf = bdata.activation_cdf(data, device)
-    for c in range(bdata.n_chunks(data)):
-        numbers, idx, val = bdata.corpus_chunk(seed, data, c, cdf, device)
-        ref.insert(numbers, bdata.doc_id(numbers), idx, val)
-    return ref
-
-
 def _queries(steps, pools, judged):
     qi = torch.cat([pools["query_idx"][steps[i].query_batch][rows]
                     for i, rows in judged.items()])
@@ -58,7 +50,7 @@ def _queries(steps, pools, judged):
     return qi, qv
 
 
-def _slots_of(ref: RefIndex, ids: np.ndarray) -> torch.Tensor:
+def _slots_of(ref, ids: np.ndarray) -> torch.Tensor:
     """Reference slots of external ids (-1 where no live document has
     the id)."""
     live_ids = torch.where(ref.live, ref.ids, -1)
@@ -70,30 +62,43 @@ def _slots_of(ref: RefIndex, ids: np.ndarray) -> torch.Tensor:
     return torch.where(hit, order[pos], -1).view(want.shape)
 
 
+def _states(cfg, seed, device, steps, judged, cell_dtype=None,
+            store_dtype=None):
+    """(judged steps of one group, reference state) in step order."""
+    mod = bspec.reference(cfg["reference"])
+    for positions, ref in mod.states(cfg, seed, device, steps, judged,
+                                     cell_dtype, store_dtype):
+        yield {i: judged[i] for i in positions}, ref
+
+
 def check(cfg: dict, traffic: dict, seed: int, steps: list, pools: dict,
           device, answers=None) -> dict:
     """Judge the sampled queries.  ``answers`` (optional) maps a step
     position to (ids, scores) that stand in for the system's answers of
     that step (the control).  Returns :func:`reference.compare.judge`'s
-    result plus ``judged`` (queries)."""
+    result, merged over the groups, plus ``judged`` (queries)."""
     judged = sample_steps(steps, seed, traffic)
     kprime, k = int(cfg["serving"]["kprime"]), int(cfg["serving"]["k"])
     chk = cfg["check"]
-    ref = build(cfg, seed, device)
-    qi, qv = _queries(steps, pools, judged)
-    ids = np.concatenate([(answers[i][0] if answers else steps[i].ids)[rows]
-                          for i, rows in judged.items()])
-    scores = np.concatenate([(answers[i][1] if answers
-                              else steps[i].scores)[rows]
-                             for i, rows in judged.items()])
-    cand = ref.candidates(qi, qv, kprime, k)
-    s_ub, s_ex = ref.rows_scores(qi, qv, _slots_of(ref, ids))
-    c_ub, c_ex = ref.rows_scores(qi, qv, cand["ub_slots"])
-    out = compare.judge(
-        ids, scores, cand, s_ub, s_ex, c_ub, c_ex,
-        ref.ids[cand["ub_slots"]], ref.ids[cand["top_slots"]], kprime,
-        float(chk["ub_band"]), float(chk["score_err"]))
-    out["judged"] = len(ids)
+    parts, n = [], 0
+    for group, ref in _states(cfg, seed, device, steps, judged):
+        qi, qv = _queries(steps, pools, group)
+        ids = np.concatenate([(answers[i][0] if answers
+                               else steps[i].ids)[rows]
+                              for i, rows in group.items()])
+        scores = np.concatenate([(answers[i][1] if answers
+                                  else steps[i].scores)[rows]
+                                 for i, rows in group.items()])
+        cand = ref.candidates(qi, qv, kprime, k)
+        s_ub, s_ex = ref.rows_scores(qi, qv, _slots_of(ref, ids))
+        c_ub, c_ex = ref.rows_scores(qi, qv, cand["ub_slots"])
+        parts.append(compare.judge(
+            ids, scores, cand, s_ub, s_ex, c_ub, c_ex,
+            ref.ids[cand["ub_slots"]], ref.ids[cand["top_slots"]], kprime,
+            float(chk["ub_band"]), float(chk["score_err"])))
+        n += len(ids)
+    out = compare.merge(parts)
+    out["judged"] = n
     return out
 
 
@@ -105,13 +110,16 @@ def reference_answers(cfg: dict, traffic: dict, seed: int, steps: list,
     judged = sample_steps(steps, seed, traffic)
     kprime, k = int(cfg["serving"]["kprime"]), int(cfg["serving"]["k"])
     B = int(traffic["query_batch"])
-    ref = build(cfg, seed, device, cell_dtype, store_dtype)
-    qi, qv = _queries(steps, pools, judged)
-    ids, scores = ref.answers(qi, qv, kprime, k)
-    out, at = {}, 0
-    for i, rows in judged.items():
-        out[i] = (np.full((B, k), -1, np.int64), np.zeros((B, k), np.float32))
-        out[i][0][rows] = ids[at:at + len(rows)]
-        out[i][1][rows] = scores[at:at + len(rows)]
-        at += len(rows)
+    out = {}
+    for group, ref in _states(cfg, seed, device, steps, judged, cell_dtype,
+                              store_dtype):
+        qi, qv = _queries(steps, pools, group)
+        ids, scores = ref.answers(qi, qv, kprime, k)
+        at = 0
+        for i, rows in group.items():
+            out[i] = (np.full((B, k), -1, np.int64),
+                      np.zeros((B, k), np.float32))
+            out[i][0][rows] = ids[at:at + len(rows)]
+            out[i][1][rows] = scores[at:at + len(rows)]
+            at += len(rows)
     return out

@@ -3,12 +3,16 @@
 One general generator serves every configuration: a configuration's
 ``data`` block names the dimensionality, the mean non-zeros of a document
 and of a query (Poisson, clipped to the pad; that many distinct
-coordinates drawn without replacement), the value law (|lognormal|) and
-the activation law (Zipf), as ``src/repro_torch/data/synth.py``'s
-text-like rows state them.  Each stream of draws (the corpus in chunks,
-the query pool) has its own generator, seeded from ``(seed, stream,
-chunk)``, so any chunk can be drawn again alone: the reference rebuilds
-the corpus chunk by chunk instead of keeping a copy.
+coordinates drawn without replacement), the value law and the activation
+law.  A law is a file of its own, found by the name the block gives
+(:func:`benchlib.spec.value_law`, :func:`benchlib.spec.activation_law`):
+``bench/laws/values/<value_law>.py`` gives ``values(gen, shape, data,
+device)`` and ``bench/laws/activations/<activation>.py`` gives ``cdf(data,
+device)``, so a new law comes as a new file.  Each stream of draws (the
+corpus in chunks, the query pool, a loop's own feed) has its own
+generator, seeded from ``(seed, stream, chunk)``, so any chunk can be
+drawn again alone: the reference rebuilds the corpus chunk by chunk
+instead of keeping a copy.
 
 Document numbers map to external ids through an odd multiplier modulo
 2**40 (:func:`doc_id`), so ids are not slots and an answer that
@@ -20,6 +24,8 @@ from __future__ import annotations
 import hashlib
 
 import torch
+
+from benchlib import spec as bspec
 
 #: Documents per corpus chunk (the unit the reference redraws).
 CHUNK_DOCS = 65_536
@@ -50,16 +56,13 @@ def generator(seed: int, stream: str, chunk: int, device) -> torch.Generator:
 
 
 def activation_cdf(data: dict, device) -> torch.Tensor:
-    """f64[n] cumulative Zipf(a) law of which coordinate a draw
-    activates, over the coordinates in rank order."""
-    if data["activation"] != "zipf":
-        raise ValueError(f"unknown activation law {data['activation']!r}")
-    w = torch.arange(1, int(data["n"]) + 1, dtype=torch.float64,
-                     device=device) ** -float(data["zipf_a"])
-    return torch.cumsum(w / w.sum(), 0)
+    """f64[n] cumulative law of which coordinate a draw activates, over
+    the coordinates in order: the ``cdf`` of the configuration's
+    activation law."""
+    return bspec.activation_law(data["activation"]).cdf(data, device)
 
 
-def _normal(gen, shape, device) -> torch.Tensor:
+def normal(gen, shape, device) -> torch.Tensor:
     """Standard normal draws by Box-Muller from uniform draws, the same on
     every call (the CPU's ``randn`` is not: its threads share the
     generator in no fixed order)."""
@@ -68,14 +71,6 @@ def _normal(gen, shape, device) -> torch.Tensor:
     u2 = torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * torch.pi * u2)
     return z.to(torch.float32)
-
-
-def _values(gen, shape, data: dict, device) -> torch.Tensor:
-    """|lognormal(0, sigma)| values (exp of a normal draw is positive)."""
-    if data["value_law"] != "lognormal" or not data["nonneg"]:
-        raise ValueError(f"unknown value law {data['value_law']!r}")
-    v = torch.exp(float(data["value_sigma"]) * _normal(gen, shape, device))
-    return torch.where(v == 0, 1e-6, v)       # active coordinates are non-zero
 
 
 #: Draws of the activation law a row takes per round, per place of its pad.
@@ -127,9 +122,21 @@ def draw_sparse(gen, rows: int, psi: float, pad: int, cdf: torch.Tensor,
         coords[todo[done]] = kept[:, :pad]
         todo, seq = todo[~done], seq[~done]
     valid = coords < n
-    vals = _values(gen, (rows, pad), data, device)
+    vals = bspec.value_law(data["value_law"]).values(gen, (rows, pad), data,
+                                                    device)
     return (torch.where(valid, coords, -1).to(torch.int32),
             torch.where(valid, vals, 0.0).to(torch.float32))
+
+
+def doc_rows(seed: int, stream: str, chunk: int, lo: int, hi: int,
+             data: dict, cdf, device):
+    """Documents numbered ``lo .. hi - 1``, drawn by the generator of
+    ``(seed, stream, chunk)``: (numbers int64, idx, val), the same on
+    every call."""
+    gen = generator(seed, stream, chunk, device)
+    idx, val = draw_sparse(gen, hi - lo, data["psi_doc"], int(data["doc_pad"]),
+                           cdf, data, device)
+    return torch.arange(lo, hi, dtype=torch.int64, device=device), idx, val
 
 
 def corpus_chunk(seed: int, data: dict, chunk: int, cdf, device):
@@ -137,10 +144,7 @@ def corpus_chunk(seed: int, data: dict, chunk: int, cdf, device):
     idx, val), the same on every call."""
     lo = chunk * CHUNK_DOCS
     hi = min(lo + CHUNK_DOCS, int(data["docs"]))
-    gen = generator(seed, "corpus", chunk, device)
-    idx, val = draw_sparse(gen, hi - lo, data["psi_doc"], int(data["doc_pad"]),
-                           cdf, data, device)
-    return torch.arange(lo, hi, dtype=torch.int64, device=device), idx, val
+    return doc_rows(seed, "corpus", chunk, lo, hi, data, cdf, device)
 
 
 def n_chunks(data: dict) -> int:

@@ -1,29 +1,40 @@
-"""The one general traffic loop: a closed loop of one client.
+"""What every traffic loop shares: the record of a step and the call that
+counts a failed request.
 
-A traffic mix (``bench/traffic/<mix>.json``) sets the query batch of a
-step (``query_batch``, from a pool of ``query_pool_batches`` drawn at
-set-up and cycled).  The next step starts when the previous one has
-returned.
-
-Every step is recorded (its host-clock times, its answers), warm-up steps
-included.  In a traced run every ``staged.every``-th step is staged: its
-query goes down the server's staged path (synced spans); the other steps
-run as in an untraced run.
+A traffic mix (``bench/traffic/<mix>.json``) names its loop (``loop``),
+``bench/loops/<loop>.py``, found by :func:`benchlib.spec.loop`; the rest
+of the mix is that loop's parameters.  A loop module gives a class
+``Loop(system, traffic, queries, trace, seed=, cfg=)``: the system under
+test, the mix, the query pool drawn at set-up, whether the run is traced,
+and the run's seed and configuration for a loop that draws inputs of its
+own (a feed of documents, from a stream of :mod:`benchlib.data` named
+after it).  It has ``step(phase)``, ``run(seconds) -> (t_start, t_end)``,
+``window()`` and ``steps`` (every :class:`Step`, warm-up steps included,
+in order).  A step that writes lists its writes in ``Step.writes``, in the
+order it made them, so that the configuration's reference can replay
+them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import sys
-import time
 import traceback
+from typing import NamedTuple
 
 import torch
 
 
+class Write(NamedTuple):
+    """One write a step made: ``op`` "insert" or "delete", and the
+    document numbers (int64, on the host) in the order given."""
+    op: str
+    numbers: torch.Tensor
+
+
 class Step:
     __slots__ = ("phase", "staged", "query_batch", "t0", "t1", "query_ms",
-                 "ids", "scores", "spans", "calls", "failed")
+                 "ids", "scores", "spans", "calls", "failed", "writes")
 
     def __init__(self, phase: str):
         self.phase = phase
@@ -35,67 +46,23 @@ class Step:
         self.spans = None              # a staged query's {stage: ms}
         self.calls = 0
         self.failed = 0
+        self.writes: list = []         # Write records, before its query
 
 
-def _label(trace: bool, name: str):
+def label(trace: bool, name: str):
+    """A profiler range named ``name`` in a traced run."""
     if not trace:
         return contextlib.nullcontext()
     return torch.profiler.record_function(name)
 
 
-class Loop:
-    """Drives ``system`` (a :class:`benchlib.system.System`) with one
-    traffic mix over the query pool drawn at set-up."""
-
-    def __init__(self, system, traffic: dict, queries, trace: bool):
-        self.system = system
-        self.Q = int(traffic["query_batch"])
-        self.q_idx, self.q_val = queries
-        self.trace = trace
-        staged = traffic.get("staged", {}) if trace else {}
-        self.staged_every = int(staged.get("every", 0))
-        self.steps: list = []
-
-    def _call(self, st: Step, fn, *args):
-        st.calls += 1
-        try:
-            return fn(*args)
-        except Exception:          # a failed request: counted, run goes on
-            st.failed += 1
-            traceback.print_exc(file=sys.stderr)
-            return None
-
-    def step(self, phase: str) -> Step:
-        s = len(self.steps)
-        st = Step(phase)
-        st.staged = bool(self.staged_every) and s % self.staged_every == 0
-        st.t0 = time.perf_counter()
-        with _label(self.trace,
-                    "bench.step.staged" if st.staged else "bench.step"):
-            st.query_batch = s % self.q_idx.shape[0]
-            with _label(self.trace, "bench.query_many"):
-                t = time.perf_counter()
-                res = self._call(st, self.system.query,
-                                 self.q_idx[st.query_batch],
-                                 self.q_val[st.query_batch], st.staged)
-                st.query_ms = (time.perf_counter() - t) * 1e3
-            if res is not None:
-                st.ids, st.scores, st.spans = res
-        st.t1 = time.perf_counter()
-        self.steps.append(st)
-        return st
-
-    def run(self, seconds: float):
-        """Steps until ``seconds`` have passed; returns (t_start, t_end)
-        of the window: from its first step's start to its last step's
-        end."""
-        t_start = time.perf_counter()
-        deadline = t_start + seconds
-        while True:
-            self.step("window")
-            if self.steps[-1].t1 >= deadline:
-                break
-        return t_start, self.steps[-1].t1
-
-    def window(self) -> list:
-        return [s for s in self.steps if s.phase == "window"]
+def call(st: Step, fn, *args):
+    """``fn(*args)`` as one request of step ``st``: an exception is a
+    failed request, counted, and the run goes on (None is returned)."""
+    st.calls += 1
+    try:
+        return fn(*args)
+    except Exception:
+        st.failed += 1
+        traceback.print_exc(file=sys.stderr)
+        return None

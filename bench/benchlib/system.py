@@ -30,6 +30,12 @@ class System:
     def insert(self, ids, idx, val) -> None:
         self.index.insert_many(ids, idx, val)
 
+    def delete(self, ids) -> None:
+        """Delete the documents of external ``ids`` (``delete_many``: an
+        id that is not live raises ``KeyError`` before anything
+        changes)."""
+        self.index.delete_many(ids)
+
     def query(self, q_idx, q_val, staged: bool = False):
         """One batch through ``query_many``: (ids, scores, spans) with the
         answers on the host.  A staged batch goes down the server's staged

@@ -15,12 +15,22 @@ slots) and keeps each query's k' largest upper bounds;
 :meth:`RefIndex.rows_scores` gives both scores of chosen slots in float64;
 :meth:`RefIndex.answers` reranks the k' candidates exactly (Algorithm 7).
 Nothing here reads the index under test.
+
+A configuration names its reference module by its ``reference`` key; the
+harness reads two things of it: :func:`mappings` (the index's hash, for
+the roofline's counts) and :func:`states`, the reference state that each
+judged step is judged against.  This module's loop never writes, so one
+state, the corpus drawn again from the seed, serves every judged step.  A
+reference for a loop that writes replays each step's ``writes`` up to the
+step it judges.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from benchlib import data as bdata
 
 _DTYPES = {"f32": torch.float32, "float32": torch.float32,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -259,6 +269,33 @@ class RefIndex:
         slots = cand["ub_slots"].gather(1, pos)
         return (self.ids[slots].cpu().numpy(),
                 top.to(torch.float32).cpu().numpy())
+
+
+def build(cfg: dict, seed: int, device, cell_dtype=None,
+          store_dtype=None) -> RefIndex:
+    """The reference index of the configuration's corpus, drawn again
+    from the seed chunk by chunk."""
+    data = cfg["data"]
+    ref = RefIndex(cfg["index"], device, int(data["docs"]), cell_dtype,
+                   store_dtype)
+    cdf = bdata.activation_cdf(data, device)
+    for c in range(bdata.n_chunks(data)):
+        numbers, idx, val = bdata.corpus_chunk(seed, data, c, cdf, device)
+        ref.insert(numbers, bdata.doc_id(numbers), idx, val)
+    return ref
+
+
+def states(cfg: dict, seed: int, device, steps: list, judged, cell_dtype=None,
+           store_dtype=None):
+    """Yield (positions, reference state) in step order, covering every
+    step position in ``judged``: here once, the corpus for all of them,
+    since no step writes (a step that wrote is an error: this reference
+    would judge it against writes it never saw)."""
+    for i, st in enumerate(steps):
+        if st.writes:
+            raise ValueError(f"step {i} wrote {len(st.writes)} time(s); "
+                             "this reference replays no writes")
+    yield sorted(judged), build(cfg, seed, device, cell_dtype, store_dtype)
 
 
 def _keep(vals, slots, new_vals, new_slots, k):

@@ -3,9 +3,11 @@
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Loads the cell's configuration and traffic mix by the names in
-``BENCHMARK.json``, opens the port's index on the card, fills it with the
-configuration's corpus drawn from the seed, warms up the cell's own
-shapes, then runs the traffic's closed loop for ``--seconds`` seconds.
+``BENCHMARK.json``, and the files they name (the data's value and
+activation laws, the mix's loop, the configuration's reference; see
+``benchlib/spec.py``), opens the port's index on the card, fills it with
+the configuration's corpus drawn from the seed, warms up the cell's own
+shapes, then runs the mix's loop for ``--seconds`` seconds.
 ``--trace 0`` reports the cell's end-to-end metrics; ``--trace 1`` runs the
 same window under ``torch.profiler`` with every few steps staged and
 reports its per-layer metrics.  After the window the system is freed and
@@ -48,9 +50,12 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def forbidden_modules() -> list:
-    return sorted({name.split(".")[0] for name in list(sys.modules)}
-                  & set(FORBIDDEN))
+def forbidden_modules(names=None) -> list:
+    """The forbidden top-level names among module ``names`` (by default
+    those loaded in this process), compared whole: ``repro_torch`` is not
+    ``repro``."""
+    names = list(sys.modules) if names is None else names
+    return sorted({name.split(".")[0] for name in names} & set(FORBIDDEN))
 
 
 def loaded_forbidden(when: str) -> bool:
@@ -123,6 +128,12 @@ def main(argv=None) -> int:
     cfg = spec.config(cell["config"])
     traffic = spec.traffic(cell["traffic"])
     apply_sets(cfg, traffic, args.set)
+    # every file the cell names, found before any work: a missing one
+    # fails here, naming the file looked for
+    bspec.value_law(cfg["data"]["value_law"])
+    bspec.activation_law(cfg["data"]["activation"])
+    Loop = bspec.loop(traffic["loop"])
+    reference = bspec.reference(cfg["reference"])
     dev = torch.device(args.device)
     if dev.type == "cuda":
         if not torch.cuda.is_available() \
@@ -137,9 +148,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cache_dirs()
 
-    from benchlib.loop import Loop
     from benchlib.system import System
-    from reference.sinnamon import mappings
 
     # -- set-up: the system, the corpus, the pools, the warm-up --------------
     data = cfg["data"]
@@ -167,7 +176,7 @@ def main(argv=None) -> int:
                                int(traffic["query_pool_batches"]),
                                int(traffic["query_batch"]), cdf, dev)
     del cdf
-    loop = Loop(system, traffic, queries, trace)
+    loop = Loop(system, traffic, queries, trace, seed=args.seed, cfg=cfg)
     for _ in range(int(traffic["warmup_steps"])):
         loop.step("warmup")
     if dev.type == "cuda":
@@ -214,8 +223,8 @@ def main(argv=None) -> int:
                                queries[1][s.query_batch].numpy())
                               for s in staged_steps]
         run.posting = posting.cpu().numpy()
-        run.maps = mappings(int(ix["seed"]), int(ix["n"]), int(ix["m"]),
-                            int(ix["h"]))
+        run.maps = reference.mappings(int(ix["seed"]), int(ix["n"]),
+                                      int(ix["m"]), int(ix["h"]))
         run.two_sided = not (ix.get("positive_only") or
                              ix.get("sketch_kind", "full") == "lite")
         run.cell_bytes = system.index.state.sketch.element_size()

@@ -51,15 +51,18 @@ FAULTS = {
 
 
 def run_cell(cell: str, seed: int = 7, trace: int = 0, seconds: float = 1.0,
-             extra=(), fault: str = None, cwd: Path = ROOT):
+             extra=(), fault: str = None, cwd: Path = ROOT,
+             prelude: str = ""):
     """Run one cell tiny on the CPU; returns (returncode, last stdout line
-    as JSON or None, stderr)."""
+    as JSON or None, stderr).  ``fault`` names a planted fault of
+    :data:`FAULTS`; ``prelude`` is more Python run before ``run.main``."""
     args = ["--workload", cell, "--seed", str(seed), "--seconds",
             str(seconds), "--trace", str(trace), "--device", "cpu"]
-    for s in TINY[cell]:
+    for s in TINY.get(cell, ()):
         args += ["--set", s]
     args += list(extra)
-    prelude = textwrap.dedent(FAULTS[fault]) if fault else ""
+    prelude = (textwrap.dedent(FAULTS[fault]) if fault else "") \
+        + textwrap.dedent(prelude)
     code = textwrap.dedent(f"""
         import sys
         sys.path[:0] = [{str(cwd / 'src')!r}, {str(cwd / 'bench')!r}]

@@ -4,6 +4,8 @@ call of one seed."""
 
 from __future__ import annotations
 
+import hashlib
+import json
 import sys
 from pathlib import Path
 
@@ -19,6 +21,12 @@ from benchlib import data as bdata  # noqa: E402
 
 DATA = {"n": 30000, "activation": "zipf", "zipf_a": 1.3,
         "value_law": "lognormal", "value_sigma": 0.6, "nonneg": True}
+
+
+#: sha256 of the tiny cell's draws (see the test below), as the harness
+#: drew them before the laws became files of their own.
+DRAWS_SHA256 = \
+    "6a7a83a627403d9eec5273c4e8fa7a7c0664b2ff2178261f4ff97683695ce0e8"
 
 
 def _draw(data, rows, psi, pad, seed=3):
@@ -65,3 +73,24 @@ def test_law_is_sampling_without_replacement():
     top = np.argsort(keys, 1)[:, :5]
     want = np.bincount(top.ravel(), minlength=20) / rows
     np.testing.assert_allclose(got, want, atol=0.012)
+
+
+def test_draws_are_pinned(monkeypatch):
+    """Corpus chunks 0 and 1 and the query pool of ``msmarco-splade``'s
+    data block at the CPU tests' tiny size (3,000 documents in chunks of
+    1,500; 4 batches of 8 queries), bit for bit as they were drawn when
+    the value and activation laws lived in ``benchlib/data.py``: the same
+    generator calls in the same order, so the system's corpus, the query
+    pool and the reference's redraw all stay the same."""
+    cfg = json.loads((BENCH / "configs" / "msmarco-splade.json").read_text())
+    data = dict(cfg["data"], docs=3000)
+    monkeypatch.setattr(bdata, "CHUNK_DOCS", 1500)
+    assert bdata.n_chunks(data) == 2
+    h = hashlib.sha256()
+    cdf = bdata.activation_cdf(data, "cpu")
+    for c in (0, 1):
+        for t in bdata.corpus_chunk(2**31 + 7, data, c, cdf, "cpu"):
+            h.update(t.contiguous().numpy().tobytes())
+    for t in bdata.query_pool(2**31 + 7, data, 4, 8, cdf, "cpu"):
+        h.update(t.contiguous().numpy().tobytes())
+    assert h.hexdigest() == DRAWS_SHA256

@@ -33,9 +33,9 @@ def _imports(path: Path) -> set:
     return out
 
 
-@pytest.mark.parametrize("sub", ("reference", "roofline"))
+@pytest.mark.parametrize("sub", ("reference", "roofline", "laws", "loops"))
 def test_yardstick_imports_neither_jax_nor_the_program(sub):
-    files = sorted((BENCH / sub).glob("*.py"))
+    files = sorted((BENCH / sub).rglob("*.py"))
     assert files
     for f in files:
         assert not _imports(f) & BANNED, f

@@ -117,16 +117,11 @@ def test_jax_loaded_means_no_result():
 def test_forbidden_names_are_whole_top_level_names():
     sys.path.insert(0, str(BENCH))
     import run
-    saved = dict(sys.modules)
-    try:
-        sys.modules["repro_torch_like"] = object()
-        sys.modules["jaxish.sub"] = object()
-        assert "repro" not in run.forbidden_modules()
-        sys.modules["repro.core"] = object()
-        assert run.forbidden_modules() == ["repro"]
-    finally:
-        for k in set(sys.modules) - set(saved):
-            del sys.modules[k]
+    names = ["torch", "repro_torch_like", "jaxish.sub", "repro_torch.core"]
+    assert run.forbidden_modules(names) == []
+    assert run.forbidden_modules(names + ["repro.core"]) == ["repro"]
+    assert run.forbidden_modules(["jax.numpy", "flax", "jaxlib.xla"]) == \
+        ["flax", "jax", "jaxlib"]
 
 
 def test_harness_without_the_program_fails(tmp_path):

@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` against the benchmark's contract, and every name in it
-resolving to its file; a configuration, a mix and a metric added as new
-files are found without editing any file that is there."""
+resolving to its file (the configurations' laws and references and the
+mixes' loops among them); a configuration, a mix and a metric added as
+new files are found without editing any file that is there."""
 
 from __future__ import annotations
 
@@ -63,11 +64,16 @@ def test_cells_resolve(bench):
         cfg = spec.config(c["name"])
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"]
+        assert callable(bspec.value_law(cfg["data"]["value_law"]).values)
+        assert callable(bspec.activation_law(cfg["data"]["activation"]).cdf)
+        ref = bspec.reference(cfg["reference"])
+        assert callable(ref.states) and callable(ref.mappings)
     used = set()
     for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["config"] in configs and w["chips"] in (1, 4)
         assert (BENCH / "traffic" / f"{w['traffic']}.json").exists()
+        assert callable(bspec.loop(spec.traffic(w["traffic"])["loop"]))
         assert w["name"] == f"{w['config']}.{w['traffic']}"
         used.add(w["config"])
         assert any(m["name"] == "setup_s" for m in spec.metrics_e2e(w))
