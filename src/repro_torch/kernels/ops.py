@@ -143,6 +143,15 @@ def _flag_to_host(flag: Tensor):
     return host, ready
 
 
+def _coord_counts(qv: Tensor, brows: Tensor, one_sided: bool) -> Tensor:
+    """int64[2] on the operands' device: the scored (query, coordinate)
+    pairs (``brows`` >= 0) and those of them with q < 0, which kernel A
+    reads from the L rows where the sketch is ``one_sided`` (a padded
+    coordinate has q = 0)."""
+    lower = qv < 0 if one_sided else torch.zeros_like(qv, dtype=torch.bool)
+    return torch.stack((brows >= 0, lower)).sum((1, 2))
+
+
 def fused_candidates(state, spec, q_idx, q_val, kprime: int, *,
                      budget: Optional[int] = None,
                      ok: Optional[Tensor] = None,
@@ -156,7 +165,11 @@ def fused_candidates(state, spec, q_idx, q_val, kprime: int, *,
     Slots past the capacity (the last tile's padding) are gated to -inf,
     so any capacity works; tiles are the kernel's ``TILE_C`` slots on every
     device.  A ``trace`` gets the spans ``sketch_scan`` (operand prep and
-    kernel A's passes) and ``topk_merge`` (the merge).
+    kernel A's passes) and ``topk_merge`` (the merge), and the counters
+    ``coords`` (the (query, coordinate) pairs kernel A scores, padding
+    dropped) and ``lower_coords`` (those of them with a negative value,
+    read from the L rows), counted on the device and read with the trace
+    (``Trace.count``).
     """
     C = state.sketch.shape[1]
     if kprime > C:
@@ -171,6 +184,9 @@ def fused_candidates(state, spec, q_idx, q_val, kprime: int, *,
         keys, flag = _sinn.candidate_scan(*args, **kw)
         if flag is not None:
             flag, ready = _flag_to_host(flag)
+        if trace is not None:       # issued behind kernel A, not before it
+            trace.count(("coords", "lower_coords"),
+                        _coord_counts(qv, brows, one_sided))
     with _span(trace, "topk_merge"):
         vals, slots = _sinn.merge_keys(keys, kprime)
     if flag is None:

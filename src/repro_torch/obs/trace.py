@@ -185,6 +185,19 @@ def _current_stream(index: int):
     return stream
 
 
+_READ: dict = {}
+
+
+def _read_stream(index: int):
+    """A stream of device ``index`` for reading a trace's counters: a copy
+    on it waits for no work queued on the streams that serve queries."""
+    stream = _READ.get(index)
+    if stream is None:
+        import torch
+        stream = _READ[index] = torch.cuda.Stream(index)
+    return stream
+
+
 def _take_event(index: int):
     pool = _EVENTS.get(index)
     if pool:
@@ -205,16 +218,19 @@ class Trace:
     The durations are read once the trace's last event has completed,
     when :func:`recent` or a `TraceContext` that imported the trace is
     read, never on the traced call.  ``trace_id`` links the trace to a
-    request's `TraceContext`.
+    request's `TraceContext`.  Beside its spans a trace keeps integer
+    ``counters`` ({name: int}, see :meth:`count`), read at the same time.
     """
 
-    __slots__ = ("name", "spans", "device", "device_timed", "t0", "trace_id",
-                 "_stream", "_index", "_last", "_events")
+    __slots__ = ("name", "spans", "counters", "device", "device_timed", "t0",
+                 "trace_id", "_stream", "_index", "_last", "_events",
+                 "_pending")
 
     def __init__(self, name: str = "query", device=None, *,
                  device_timed: bool = False, trace_id: Optional[str] = None):
         self.name = name
         self.spans: list[Span] = []
+        self.counters: dict = {}
         self.device = device
         self.device_timed = device_timed
         self.t0 = time.perf_counter()
@@ -222,6 +238,7 @@ class Trace:
         self._stream = None
         self._last = None           # the last boundary's event
         self._events: list = []     # every event recorded, to give back
+        self._pending: list = []    # (names, counts tensor) until read
         if device_timed and getattr(device, "type", None) == "cuda":
             import torch
             self._index = device.index if device.index is not None \
@@ -234,6 +251,20 @@ class Trace:
             return _TimedSpanCtx(self, name)
         return _SpanCtx(self, name)
 
+    def count(self, names, values) -> None:
+        """Add the integer tensor ``values`` (one entry a name) to the
+        counters ``names``, read into :attr:`counters` when the trace is
+        (repeated names accumulate).  A synced trace reads them now.  A
+        device-timed trace keeps the tensor where it is and reads nothing
+        here; call this inside a span, whose closing event follows the
+        work that computes ``values``.  :func:`recent` reads them once the
+        trace's last event has completed, a CUDA tensor through a copy on
+        a stream of its own, which waits for nothing queued since."""
+        if self.device_timed:
+            self._pending.append((tuple(names), values))
+        else:
+            self._add(names, values)
+
     def _record(self):
         """A timing event recorded now on the trace's stream."""
         ev = _take_event(self._index)
@@ -242,24 +273,38 @@ class Trace:
         return ev
 
     def _resolve(self) -> bool:
-        """Read every device duration if the trace's last event has
-        completed (the stream runs its events in order), and give the
-        events back to the pool; True when nothing is left to read.
-        Never waits."""
-        if not self._events:
-            return True
-        if not self._events[-1].query():
-            return False
-        for s in self.spans:
-            if s._ev is not None:
-                ev0, ev1 = s._ev
-                s.device_ms = ev0.elapsed_time(ev1)
-                s._ev = None
-        pool = _EVENTS.setdefault(self._index, [])
-        pool.extend(self._events[:max(0, POOL - len(pool))])
-        self._events = []
-        self._last = None
+        """Read every device duration and counter if the trace's last event
+        has completed (the stream runs its work in order), and give the
+        events back to the pool; True when nothing is left to read.  Never
+        waits."""
+        if self._events:
+            if not self._events[-1].query():
+                return False
+            for s in self.spans:
+                if s._ev is not None:
+                    ev0, ev1 = s._ev
+                    s.device_ms = ev0.elapsed_time(ev1)
+                    s._ev = None
+            pool = _EVENTS.setdefault(self._index, [])
+            pool.extend(self._events[:max(0, POOL - len(pool))])
+            self._events = []
+            self._last = None
+        for names, values in self._pending:
+            self._add(names, values)
+        self._pending = []
         return True
+
+    def _add(self, names, values) -> None:
+        """Add counts to :attr:`counters`.  A device-timed trace's events
+        have completed, so its CUDA counts are computed and are read on
+        the ring's own stream, behind nothing queued since; a synced trace
+        reads on the current stream, behind the work that computes them."""
+        if values.device.type == "cuda" and self.device_timed:
+            import torch
+            with torch.cuda.stream(_read_stream(values.device.index)):
+                values = values.cpu()
+        for name, v in zip(names, values.tolist()):
+            self.counters[name] = self.counters.get(name, 0) + v
 
     def finish(self) -> "Trace":
         """Seal a device-timed trace and keep it in the ring of its
@@ -270,7 +315,7 @@ class Trace:
                 ring = _rings[self.name] = (deque(maxlen=RING),
                                             deque(maxlen=RING))
             ring[0].append(self)
-            if self._events:
+            if self._events or self._pending:
                 ring[1].append(self)
         return self
 
@@ -302,8 +347,8 @@ _ring_lock = threading.Lock()
 
 def recent(op: str) -> list:
     """The kept traces of operation ``op``, oldest first (at most
-    :data:`RING`), with the device durations read of every trace whose
-    events have completed."""
+    :data:`RING`), with the device durations and counters read of every
+    trace whose events have completed."""
     with _ring_lock:
         ring = _rings.get(op)
         if ring is None:
